@@ -1,0 +1,50 @@
+"""Carry a prover's state from the JAX package into the port.
+
+For a prover the "weights" are the proving key and the witness.  These
+functions take any object with the fields of snarkjs_tpu's `Groth16Zkey`
+(formats/zkey.py) or `Witness` (formats/wtns.py), duck-typed: arrays as
+numpy (or anything `np.asarray` takes), points as host ints, the curve by
+name.  Nothing of snarkjs_tpu is imported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .curves.host_curve import get_curve
+from .formats.wtns import Witness
+from .formats.zkey import Groth16Zkey
+
+
+def _arrays(t):
+    if isinstance(t, tuple):
+        return tuple(_arrays(x) for x in t)
+    return np.array(t)
+
+
+def zkey_from_numpy(src, device=None) -> Groth16Zkey:
+    """The port's Groth16Zkey from a JAX-package one.  With `device`, the MSM
+    bases are uploaded there at once (else at the first proof)."""
+    zk = Groth16Zkey(
+        curve=get_curve(src.curve.name), n8q=int(src.n8q), n8r=int(src.n8r),
+        n_vars=int(src.n_vars), n_public=int(src.n_public),
+        domain_size=int(src.domain_size), power=int(src.power),
+        vk_alpha_1=src.vk_alpha_1, vk_beta_1=src.vk_beta_1,
+        vk_beta_2=src.vk_beta_2, vk_gamma_2=src.vk_gamma_2,
+        vk_delta_1=src.vk_delta_1, vk_delta_2=src.vk_delta_2,
+        ic=list(src.ic),
+        coeffs={k: np.array(v) for k, v in src.coeffs.items()},
+        a_points=_arrays(src.a_points), b1_points=_arrays(src.b1_points),
+        b2_points=_arrays(src.b2_points), c_points=_arrays(src.c_points),
+        h_points=_arrays(src.h_points), raw=None)
+    if device is not None:
+        from . import device as devmod
+        from .protocols.groth16 import _dev_points
+
+        _dev_points(zk, devmod.resolve(device))
+    return zk
+
+
+def witness_from_numpy(src) -> Witness:
+    return Witness(n8=int(src.n8), q=int(src.q), n=int(src.n),
+                   values=np.array(src.values, dtype=np.uint32))

@@ -1,0 +1,255 @@
+"""Prime-field arithmetic on torch tensors (port of snarkjs_tpu/fields/fjnp.py).
+
+Representation: a batch of field elements is an int32 tensor of shape
+``(NL, *batch)``: 16-bit limbs, limb-major, the layout of the JAX package's
+uint32 arrays (torch's uint32 lacks `+` and `>>`, and a 16-bit limb fits
+int32 exactly; `to_numpy` gives the uint32 view back).  Montgomery form
+where fjnp keeps Montgomery form.
+
+Every op dispatches on the device of its operands, as fjnp's `_*_impl`
+dispatch to Pallas: a CUDA tensor goes to kernel K-field (`fcuda`), a CPU
+tensor to the plain version below, which computes limbs in int64 (a 16x16
+product and a column sum of 2*NL of them fit easily).  `plain_versions()`
+runs the plain versions on any device; it exists so a run on the card can
+hold the kernels against them, and nothing on the prover's path enters it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import numpy as np
+import torch
+
+from . import fcuda
+from .params import LIMB_BITS, LIMB_MASK, FieldParams, get_params
+
+DTYPE = torch.int32
+
+
+class FieldCtx:
+    """Constants for one prime field, shaped for limb-major math."""
+
+    def __init__(self, fp: FieldParams):
+        self.fp = fp
+        self.nl = fp.nl
+        self.p_np = np.array(fp.limbs(fp.p), dtype=np.int64)
+        self.pinv_np = np.array(fp.limbs(fp.pinv_neg), dtype=np.int64)
+        self.r2_np = np.array(fp.limbs(fp.R2), dtype=np.int64)
+        self.one_np = np.array(fp.limbs(fp.one_mont), dtype=np.int64)
+
+    def _c(self, arr_np, like, dtype=DTYPE):
+        return torch.as_tensor(arr_np, dtype=dtype, device=like.device).reshape(
+            (self.nl,) + (1,) * (like.dim() - 1))
+
+    def p(self, x, dtype=DTYPE):
+        return self._c(self.p_np, x, dtype)
+
+    def pinv(self, x):
+        return self._c(self.pinv_np, x, torch.int64)
+
+    def r2(self, x):
+        return self._c(self.r2_np, x)
+
+    def one(self, batch_shape=(), device="cpu"):
+        t = torch.as_tensor(self.one_np, dtype=DTYPE, device=device)
+        return t.reshape((self.nl,) + (1,) * len(batch_shape)).expand(
+            (self.nl,) + tuple(batch_shape)).contiguous()
+
+    def zero(self, batch_shape=(), device="cpu"):
+        return torch.zeros((self.nl,) + tuple(batch_shape), dtype=DTYPE,
+                           device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def get_ctx(name_or_params) -> FieldCtx:
+    if isinstance(name_or_params, str):
+        return FieldCtx(get_params(name_or_params))
+    return FieldCtx(name_or_params)
+
+
+# ------------------------------------------------------------ dispatch
+
+_PLAIN = [False]
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run every field op (and the kernels built on them) as its plain
+    version, whatever the device.  For checking the kernels only."""
+    _PLAIN.append(True)
+    try:
+        yield
+    finally:
+        _PLAIN.pop()
+
+
+def use_kernel(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor outside `plain_versions()`."""
+    return t.device.type == "cuda" and not _PLAIN[-1]
+
+
+def _bcast(*ts):
+    shape = torch.broadcast_shapes(*[t.shape for t in ts])
+    return [t.expand(shape).contiguous() for t in ts]
+
+
+# ------------------------------------------------- plain limb primitives
+
+def _carry_prop(cols):
+    """Propagate carries across limb axis 0 (non-negative int64 columns).
+
+    Returns (16-bit limbs as int64, same shape; final carry-out)."""
+    out = torch.empty_like(cols)
+    carry = torch.zeros_like(cols[0])
+    for k in range(cols.shape[0]):
+        v = cols[k] + carry
+        out[k] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    return out, carry
+
+
+def _conv(a, b, out_cols):
+    """Column sums of the limb product a*b (int64, carries deferred)."""
+    na, nb = a.shape[0], b.shape[0]
+    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    cols = torch.zeros((max(out_cols, na + nb - 1),) + batch,
+                       dtype=torch.int64, device=a.device)
+    for i in range(na):
+        cols[i:i + nb] += a[i] * b
+    return cols[:out_cols]
+
+
+def _sub_limbs(a, b):
+    """a - b with a borrow chain; (limbs, borrow-out)."""
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    borrow = torch.zeros(shape[1:], dtype=torch.int64, device=a.device)
+    for k in range(shape[0]):
+        d = a[k] - b[k] - borrow
+        borrow = (d < 0).to(torch.int64)
+        out[k] = d + (borrow << LIMB_BITS)
+    return out, borrow
+
+
+def _add_limbs(a, b):
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    return _carry_prop(a.expand(shape) + b.expand(shape))
+
+
+def _cond_sub_p(ctx, limbs, carry):
+    """(carry*R + limbs) < 2p  ->  [0, p)."""
+    diff, borrow = _sub_limbs(limbs, ctx.p(limbs, torch.int64))
+    use_diff = (carry + 1 - borrow) >= 1
+    return torch.where(use_diff[None], diff, limbs)
+
+
+# ------------------------------------------------------- plain versions
+
+def _i64(t):
+    return t.to(torch.int64)
+
+
+def _add_plain(ctx, a, b):
+    s, carry = _add_limbs(_i64(a), _i64(b))
+    return _cond_sub_p(ctx, s, carry).to(DTYPE)
+
+
+def _sub_plain(ctx, a, b):
+    d, borrow = _sub_limbs(_i64(a), _i64(b))
+    fixed, _ = _add_limbs(d, ctx.p(d, torch.int64))
+    return torch.where((borrow == 1)[None], fixed, d).to(DTYPE)
+
+
+def _neg_plain(ctx, a):
+    a = _i64(a)
+    d, _ = _sub_limbs(ctx.p(a, torch.int64).expand(a.shape), a)
+    return torch.where(is_zero(ctx, a)[None], torch.zeros_like(a), d).to(DTYPE)
+
+
+def _mont_mul_plain(ctx, a, b):
+    """a*b*R^-1 mod p for a < R, b < p (fjnp._mont_mul_impl's XLA path)."""
+    n = ctx.nl
+    a, b = _i64(a), _i64(b)
+    t, t_top = _carry_prop(_conv(a, b, 2 * n))
+    m, _ = _carry_prop(_conv(t[:n], ctx.pinv(t), n))
+    u_cols = _conv(m, ctx.p(t, torch.int64), 2 * n)
+    u_cols = u_cols + t
+    u, carry = _carry_prop(u_cols)
+    return _cond_sub_p(ctx, u[n:], carry + t_top).to(DTYPE)
+
+
+# ------------------------------------------------------------ public ops
+
+def add(ctx: FieldCtx, a, b):
+    if use_kernel(a):
+        return fcuda.launch("add", ctx.fp, *_bcast(a, b))
+    return _add_plain(ctx, a, b)
+
+
+def sub(ctx: FieldCtx, a, b):
+    if use_kernel(a):
+        return fcuda.launch("sub", ctx.fp, *_bcast(a, b))
+    return _sub_plain(ctx, a, b)
+
+
+def neg(ctx: FieldCtx, a):
+    if use_kernel(a):
+        return fcuda.launch("neg", ctx.fp, a.contiguous())
+    return _neg_plain(ctx, a)
+
+
+def mont_mul(ctx: FieldCtx, a, b):
+    """Montgomery product a*b*R^-1 mod p.  a < R, b < p; output in [0, p)."""
+    if use_kernel(a):
+        return fcuda.launch("mont_mul", ctx.fp, *_bcast(a, b))
+    return _mont_mul_plain(ctx, a, b)
+
+
+def to_mont(ctx: FieldCtx, a):
+    return mont_mul(ctx, a, ctx.r2(a))
+
+
+def from_mont(ctx: FieldCtx, a):
+    one_plain = torch.zeros((ctx.nl,) + (1,) * (a.dim() - 1), dtype=DTYPE,
+                            device=a.device)
+    one_plain[0] = 1
+    return mont_mul(ctx, a, one_plain)
+
+
+def is_zero(ctx: FieldCtx, a):
+    return (a == 0).all(dim=0)
+
+
+# ------------------------------------------- host <-> tensor conversions
+
+def np_from_int(fp: FieldParams, v: int) -> np.ndarray:
+    return np.array(fp.limbs(v % fp.p), dtype=np.uint32)
+
+
+def np_from_ints(fp: FieldParams, vs) -> np.ndarray:
+    """list of ints -> (NL, N) uint32 (reduced mod p)."""
+    buf = b"".join((int(v) % fp.p).to_bytes(fp.n8, "little") for v in vs)
+    u16 = np.frombuffer(buf, dtype="<u2").reshape(len(vs), fp.nl)
+    return np.ascontiguousarray(u16.T).astype(np.uint32)
+
+
+def np_to_ints(fp: FieldParams, arr) -> list:
+    """(NL, ...) limbs (numpy or tensor) -> list of ints."""
+    arr = to_numpy(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    flat = arr.reshape(fp.nl, -1).astype("<u2").T
+    data = np.ascontiguousarray(flat).tobytes()
+    n8 = 2 * fp.nl
+    return [int.from_bytes(data[j * n8:(j + 1) * n8], "little")
+            for j in range(flat.shape[0])]
+
+
+def to_tensor(arr, device) -> torch.Tensor:
+    """uint32 limb array -> int32 tensor on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 limb tensor -> uint32 numpy array (the JAX package's layout)."""
+    return t.detach().cpu().numpy().astype(np.uint32)

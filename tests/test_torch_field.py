@@ -1,0 +1,80 @@
+"""snarkjs_tpu_torch field ops (plain versions on the CPU) against fjnp.
+
+Exact: limbs equal.  Inputs from a numpy seed, with the edge values 0, 1,
+p-1, and to_mont of limbs in [p, R) (the wide sums of the Groth16 buildABC).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from snarkjs_tpu.fields import fjnp
+from snarkjs_tpu_torch.fields import ftorch
+
+FIELDS = ["bn254_fr", "bn254_fq", "bls12_381_fr", "bls12_381_fq"]
+
+
+def _values(fp, seed, n=61):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(fp.n8), "little") % fp.p for _ in range(n)]
+    return [0, 1, fp.p - 1] + vals
+
+
+def _pair(name):
+    ctx_j, ctx_t = fjnp.get_ctx(name), ftorch.get_ctx(name)
+    fp = ctx_j.fp
+    a = _values(fp, 1)
+    b = _values(fp, 2)[::-1]
+    A, B = fjnp.np_from_ints(fp, a), fjnp.np_from_ints(fp, b)
+    return ctx_j, ctx_t, A, B
+
+
+@pytest.mark.parametrize("name", FIELDS)
+@pytest.mark.parametrize("op", ["add", "sub", "mont_mul"])
+def test_binary_ops_match_fjnp(name, op):
+    ctx_j, ctx_t, A, B = _pair(name)
+    want = np.asarray(getattr(fjnp, op)(ctx_j, jnp.asarray(A), jnp.asarray(B)))
+    got = getattr(ftorch, op)(ctx_t, ftorch.to_tensor(A, "cpu"),
+                              ftorch.to_tensor(B, "cpu"))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+@pytest.mark.parametrize("op", ["neg", "to_mont", "from_mont"])
+def test_unary_ops_match_fjnp(name, op):
+    ctx_j, ctx_t, A, _ = _pair(name)
+    want = np.asarray(getattr(fjnp, op)(ctx_j, jnp.asarray(A)))
+    got = getattr(ftorch, op)(ctx_t, ftorch.to_tensor(A, "cpu"))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_to_mont_of_wide_limbs(name):
+    ctx_j, ctx_t = fjnp.get_ctx(name), ftorch.get_ctx(name)
+    fp = ctx_j.fp
+    R = 1 << (16 * fp.nl)
+    wide = [fp.p, fp.p + 1, R - 1, R - fp.p, (fp.p + R) // 2]
+    W = np.array([[(v >> (16 * i)) & 0xFFFF for v in wide]
+                  for i in range(fp.nl)], dtype=np.uint32)
+    want = np.asarray(fjnp.to_mont(ctx_j, jnp.asarray(W)))
+    got = ftorch.to_mont(ctx_t, ftorch.to_tensor(W, "cpu"))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+    assert ftorch.np_to_ints(fp, got) == [fp.to_mont(v % fp.p) for v in wide]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_codecs_match_fjnp(name):
+    fp = fjnp.get_ctx(name).fp
+    vals = _values(fp, 3)
+    arr = ftorch.np_from_ints(fp, vals)
+    np.testing.assert_array_equal(arr, fjnp.np_from_ints(fp, vals))
+    assert ftorch.np_to_ints(fp, arr) == fjnp.np_to_ints(fp, arr) == vals
+
+
+def test_broadcast_matches_fjnp():
+    ctx_j, ctx_t, A, B = _pair("bn254_fr")
+    col = B[:, :1]
+    want = np.asarray(fjnp.mont_mul(ctx_j, jnp.asarray(A), jnp.asarray(col)))
+    got = ftorch.mont_mul(ctx_t, ftorch.to_tensor(A, "cpu"),
+                          ftorch.to_tensor(col, "cpu"))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)

@@ -1,0 +1,145 @@
+"""Rules of the snarkjs_tpu_torch port: no JAX, no snarkjs_tpu, the card by
+default.  Also the kernel tests that need an NVIDIA card (marker `cuda`):
+they skip here and run on the card with `python -m pytest --noconftest
+-m cuda tests/test_torch_rules.py` (this file imports no jax)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from snarkjs_tpu_torch import device as devmod
+from snarkjs_tpu_torch.fields import ftorch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import importlib, sys
+{imports}
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "snarkjs_tpu" or m.startswith("snarkjs_tpu.")]
+print("BAD", bad)
+"""
+
+PORT_MODULES = [
+    "snarkjs_tpu_torch", "snarkjs_tpu_torch.protocols.groth16",
+    "snarkjs_tpu_torch.convert", "snarkjs_tpu_torch.ntt.ntt_mm",
+    "snarkjs_tpu_torch.curves.msm_gpu", "snarkjs_tpu_torch.fields.fcuda",
+    "snarkjs_tpu_torch._build",
+]
+
+
+def _bad_modules(imports: str) -> str:
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _CHECK.format(imports=imports)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip().splitlines()[-1]
+
+
+def test_port_imports_no_jax_and_no_snarkjs_tpu():
+    imports = "\n".join(f"importlib.import_module({m!r})" for m in PORT_MODULES)
+    assert _bad_modules(imports) == "BAD []"
+
+
+def test_chip_smoke_imports_no_jax_and_no_snarkjs_tpu():
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    lines = [ln for ln in src.splitlines()
+             if ln.startswith(("import ", "from ")) and "__future__" not in ln]
+    assert any("snarkjs_tpu_torch" in ln for ln in lines)
+    assert _bad_modules("\n".join(lines)) == "BAD []"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from snarkjs_tpu_torch.protocols import groth16 as tg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        devmod.resolve(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tg.prove_files(os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures",
+                                    "tiny_bn128.zkey"),
+                       os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures",
+                                    "tiny_bn128.wtns"), r=1, s=2)
+    assert devmod.resolve("cpu").type == "cpu"
+
+
+def test_plain_versions_only_inside_context():
+    t = torch.zeros(4, 2, dtype=torch.int32)
+    assert not ftorch.use_kernel(t)
+    with ftorch.plain_versions():
+        assert not ftorch.use_kernel(t)
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bn254_fr", "bn254_fq", "bls12_381_fq"])
+def test_k_field_matches_plain_on_card(card, name):
+    ctx = ftorch.get_ctx(name)
+    fp = ctx.fp
+    rng = np.random.default_rng(7)
+    vals = [0, 1, fp.p - 1] + [int.from_bytes(rng.bytes(fp.n8), "little") % fp.p
+                               for _ in range(4093)]
+    a = ftorch.to_tensor(ftorch.np_from_ints(fp, vals), card)
+    b = a.flip(1).contiguous()
+    for op in ("add", "sub", "mont_mul"):
+        got = getattr(ftorch, op)(ctx, a, b)
+        with ftorch.plain_versions():
+            want = getattr(ftorch, op)(ctx, a, b)
+        assert torch.equal(got, want), op
+    with ftorch.plain_versions():
+        want = ftorch.neg(ctx, a)
+    assert torch.equal(ftorch.neg(ctx, a), want)
+
+
+@pytest.mark.cuda
+def test_k_mm_matches_plain_on_card(card):
+    from snarkjs_tpu_torch.ntt import ntt_mm
+
+    g = torch.Generator().manual_seed(3)
+    W8 = torch.randint(-128, 128, (33, 64, 64), generator=g, dtype=torch.int8)
+    D8 = torch.randint(-128, 128, (33, 64, 96), generator=g, dtype=torch.int8)
+    got = ntt_mm.digit_mm(W8.to(card), D8.to(card)).cpu()
+    assert torch.equal(got, ntt_mm.digit_mm_plain(W8, D8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_k_scan_matches_plain_on_card(card, group):
+    from snarkjs_tpu_torch.curves import host_curve as hc
+    from snarkjs_tpu_torch.curves import msm_gpu
+
+    cv = hc.BN254
+    fq = cv.fq
+    m = msm_gpu.get_msm(cv.name, group, cw=8)
+    n = 512
+    pts, acc = [], cv.g1 if group == "g1" else cv.g2
+    add = hc.g1_add if group == "g1" else hc.g2_add
+    for _ in range(n):
+        pts.append(acc)
+        acc = add(cv, acc, cv.g1 if group == "g1" else cv.g2)
+    coord = lambda f: ftorch.to_tensor(
+        ftorch.np_from_ints(fq, [fq.to_mont(f(p)) for p in pts]), card)
+    if group == "g1":
+        px, py = coord(lambda p: p[0]), coord(lambda p: p[1])
+    else:
+        px = (coord(lambda p: p[0][0]), coord(lambda p: p[0][1]))
+        py = (coord(lambda p: p[1][0]), coord(lambda p: p[1][1]))
+    rng = np.random.default_rng(9)
+    scal = torch.from_numpy(rng.integers(0, 256, (4, n)).astype(np.int32)).to(card)
+    xyT = m.scan_input(px, py, torch.zeros(n, dtype=torch.bool, device=card),
+                       scal, lanes=128)
+    assert torch.equal(msm_gpu.scan(fq, m.b, m.ext, xyT),
+                       msm_gpu.scan_plain(fq, m.b, m.ext, xyT))
