@@ -321,8 +321,29 @@ def imad_per_s():
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True).stdout.split()
-    mhz = float(clk[0]) if clk else 1980.0
+    check(clk and clk[0].replace(".", "", 1).isdigit(),
+          f"nvidia-smi gave no max SM clock ({clk})")
+    mhz = float(clk[0])
+    log(f"  32-bit multiply-add rate: {IMAD_PER_CLK_SM} x "
+        f"{props.multi_processor_count} SMs x {mhz:.0f} MHz")
     return IMAD_PER_CLK_SM * props.multi_processor_count * mhz * 1e6
+
+
+def mont_mul_imads(n32):
+    """32-bit multiply instructions of one CIOS product (field.cuh:fmul):
+    2*n32^2 wide 32x32->64 products (lo and hi, two each) and n32 low-half
+    products m = t[0] * np0."""
+    return 4 * n32 * n32 + n32
+
+
+def madd_products(b, ext):
+    """Full Montgomery products in one K-scan mixed add (msm_scan.cu:rcb_madd):
+    11 over the base field, less the two 3b products when G1's 3b is a small
+    integer (msm_gpu.scan's b3_small: an add ladder, no multiplies); three Fq
+    products per Fq2 product for G2."""
+    if ext == 2:
+        return 33
+    return 9 if 0 < 3 * b < 64 else 11
 
 
 def bound(nbytes, ops, rate):
@@ -330,10 +351,12 @@ def bound(nbytes, ops, rate):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def phase_breakdown(dev, zkey, wit):
+def phase_breakdown(dev, zkey, wit, prove_ms):
     """Where the warm prove's time goes: the QAP and each MSM alone (host
     clock around synchronised work), then one prove under torch.profiler
-    for device time per kernel and the device's busy share."""
+    for device time per kernel.  The busy share is that device time over
+    the warm prove's wall time without the profiler (prove_ms), since the
+    profiler stretches the host side of the profiled prove."""
     cv = hc.BN254
     fr, fq = cv.fr, cv.fq
     ctx = ftorch.get_ctx(fr.name)
@@ -367,8 +390,9 @@ def phase_breakdown(dev, zkey, wit):
     if busy == 0:
         log("  profiler: no device time recorded (device busy share not measured)")
     else:
-        log(f"  profiled prove: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-            f"({100 * busy / wall:.1f}%), idle {100 - 100 * busy / wall:.1f}%")
+        log(f"  profiled prove: wall {wall:.1f} ms (profiler on), device busy "
+            f"{busy:.1f} ms; over the unprofiled warm prove ({prove_ms:.1f} ms): "
+            f"busy {100 * busy / prove_ms:.1f}%, idle {100 - 100 * busy / prove_ms:.1f}%")
         for k, v in top:
             log(f"    {v:9.2f} ms  {k[:90]}")
     return parts
@@ -392,7 +416,7 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs):
         with ftorch.plain_versions():
             plain_ms = cuda_ms(lambda: fn(ctx, *args), 2)
         nbytes = (len(args) + 1) * ctx.nl * 4 * (1 << 20)
-        wide = (2 * n32 * n32 + n32) * 2 * (1 << 20) if op == "mont_mul" else 0
+        wide = mont_mul_imads(n32) * (1 << 20) if op == "mont_mul" else 0
         bms, by = bound(nbytes, wide, rate32) if wide else (
             nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
         ops[op] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
@@ -413,7 +437,7 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs):
         errs["msm_scan"] = max(errs["msm_scan"], e)
         nw, C, nin, RL = xyT.shape
         nbytes = xyT.numel() * 4 + got.numel() * 4
-        wide = nw * C * RL * 11 * (3 if m.ext == 2 else 1) * (2 * 8 * 8 + 8) * 2
+        wide = nw * C * RL * madd_products(m.b, m.ext) * mont_mul_imads(cv.fq.nl // 2)
         bms, by = bound(nbytes, wide, rate32)
         log(f"  K-scan {group} {tuple(xyT.shape)} == plain: {ms:.3f} ms  "
             f"plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by})")
@@ -482,7 +506,7 @@ def main():
     log("[2^20 Groth16 prove]")
     zkey, wit, prove_ms, launches = phase_full_prove(dev, tables)
     log("[where the time goes]")
-    phase_breakdown(dev, zkey, wit)
+    phase_breakdown(dev, zkey, wit, prove_ms)
     log("[main-path shapes and times]")
     entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs)
 

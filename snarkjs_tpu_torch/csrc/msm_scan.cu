@@ -6,7 +6,8 @@
 // payload) and a key word mag*2 + sign; NIN = 2*N*EXT + 1.  Output is
 // (nw, C, 3*N*EXT, RL): after step c the lane's running point
 // sum_{c' >= c} (+-P_c') in projective (X, Y, Z), packed the same way.
-// Each step is one RCB complete mixed add (rcb.rcb_madd, 11M + 14a), with y
+// Each step is one RCB complete mixed add (rcb.rcb_madd, 11M + 14a; 9M when
+// 3b is a small integer), with y
 // negated first on lanes whose key has the sign bit set.
 //
 // Where the TPU walked C as a sequential grid axis and carried the running
@@ -17,8 +18,9 @@
 // the glue.
 //
 // What bounds it on an H100: integer multiply throughput.  A bn254 G1 step
-// is 11 Montgomery products of 8 x 32-bit words (~1.5k 32-bit multiply
-// instructions) against 28 words of traffic.  Registers bound the occupancy:
+// is 9 Montgomery products of 8 x 32-bit words (the two 3b products are an
+// add ladder, fmul_small; ~2.4k 32-bit multiply instructions) against 28
+// words of traffic; a G2 step is 33 base-field products.  Registers bound the occupancy:
 // the running point, the affine input and the Montgomery temporaries of
 // G2 (Fq2, 2 x N words per coordinate) exceed what the SM can hold for many
 // threads, and bls12-381 G2 (N = 12) spills to local memory (see the

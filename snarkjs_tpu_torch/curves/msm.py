@@ -22,7 +22,7 @@ class MSMContext:
         self.ctx = fq_ctx
         self.ext = extension
 
-    def run(self, px, py, pinf, scalars, cw: int = 16, lanes: int | None = None):
+    def run(self, px, py, pinf, scalars, cw: int = 16):
         """MSM over plain-form scalars; returns a host jacobian int tuple.
 
         px/py: (NL, N) int32 limb tensors (Fq) or pairs of them (Fq2),
@@ -42,7 +42,7 @@ class MSMContext:
                 2 * scalars.shape[0], scalars.shape[1])
         elif cw != LIMB_BITS:
             raise ValueError("cw must be 8 or 16")
-        return m.run(px, py, pinf, scalars, lanes=lanes)
+        return m.run(px, py, pinf, scalars)
 
 
 # ---------------- host jacobian finishing (bigint, exact) ----------------

@@ -381,12 +381,12 @@ class GpuMSM:
     def n_windows(self, scalar_rows: int) -> int:
         return scalar_rows + int(self.fr.p.bit_length() >= self.cw * scalar_rows)
 
-    def run(self, px, py, pinf, scalars, lanes: int | None = None):
+    def run(self, px, py, pinf, scalars):
         """Full MSM; returns the host jacobian int tuple."""
         n = scalars.shape[-1]
         device = scalars.device
         nw = self.n_windows(scalars.shape[0])
-        RL = lanes or _lanes(nw, n, device)
+        RL = _lanes(nw, n, device)
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
         flatW = self._program(C, RL, nw, device)(px, py, pinf, scalars)
