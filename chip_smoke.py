@@ -9,9 +9,12 @@ Phases (any failure exits non-zero before the last line):
   3. each kernel against its plain PyTorch version on the card, limb for limb:
      K-field (all four ops; bn254 Fr/Fq, bls12-381 Fq; 2^20 elements with the
      edge values and to_mont of limbs in [p, R)), K-scan (bn254 G1/G2, cw=8,
-     2^12 points), K-mm (1024 x 1024 x 1024, bn254 Fr);
-  4. the stored tiny bn128 fixture proved through `prove_files`, byte-equal to
-     the proof the JAX package made, verified, a tampered public rejected;
+     2^12 points), K-mm (1024 x 1024 x 1024, bn254 Fr), K-mm-norm (bn254 Fr
+     and bls12-381 Fr at 1024 x 1024 x 1024, r = 4 with m = 2^16, m = 4 with
+     r = 1024, and a shape that is no multiple of 4);
+  4. the stored tiny bn128 fixtures proved through `prove_files`, byte-equal
+     to the proofs the JAX package made, verified, a tampered public rejected:
+     Groth16, then PLONK with SNARKJS_NTT_FUSED=1;
   5. the full-width prove: a 2^20-domain bn128 Groth16 key (the 600,000
      constraint squaring chain of bench.py, point sections tiled from 512
      multiples of G1 and 64 of G2), launch counts set to 0 just before and
@@ -23,11 +26,24 @@ Phases (any failure exits non-zero before the last line):
      under torch.profiler), then times (CUDA events) of each kernel, its
      plain version and, for K-mm, one torch._int_mm on the Toeplitz-expanded
      digit matrix;
-  7. the kernels line, then the contract line.
+  7. the full-width PLONK prove: the 200,000-constraint squaring chain
+     (domain n = 2^18, 4n = 2^20), its key written by `_write_plonk_zkey` on
+     the card with an SRS tiled from the 512 multiples of G1; proved with
+     SNARKJS_NTT_FUSED=1 (launch counts set to 0 just before, read just after)
+     and without; nine commitments against their closed forms, six
+     evaluations against host Horner, the quotient identity at xi on host
+     bigints, fused proof == unfused proof;
+  8. PLONK times: warm prove fused and unfused, rounds 1-5, peak memory, one
+     prove under torch.profiler;
+  9. the kernels line, then the contract line.
+
+The Groth16 phases leave SNARKJS_NTT_FUSED unset (K-mm); the PLONK phases set
+it (K-mm-norm), so both NTT kernels stay on a driven path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -42,10 +58,12 @@ from snarkjs_tpu_torch.curves import host_curve as hc
 from snarkjs_tpu_torch.curves import msm as msm_mod
 from snarkjs_tpu_torch.curves import msm_gpu
 from snarkjs_tpu_torch.fields import fcuda, ftorch
+from snarkjs_tpu_torch.formats import points as pcodec
+from snarkjs_tpu_torch.formats.r1cs import R1cs
 from snarkjs_tpu_torch.formats.wtns import Witness
-from snarkjs_tpu_torch.formats.zkey import Groth16Zkey
+from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_plonk_zkey
 from snarkjs_tpu_torch.ntt import ntt_mm
-from snarkjs_tpu_torch.protocols import groth16
+from snarkjs_tpu_torch.protocols import groth16, plonk, plonk_setup
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "snarkjs_tpu_torch", "fixtures")
@@ -53,6 +71,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 IMAD_PER_CLK_SM = 64        # 32-bit integer multiply-add results/clk/SM, cc 9.0
 N_CONSTRAINTS = 600_000
+PLONK_CONSTRAINTS = 200_000  # + 1 public-input row: domain 2^18
+FUSED = "SNARKJS_NTT_FUSED"
 
 
 def log(msg):
@@ -97,12 +117,28 @@ def reset_counts():
     fcuda.reset_counts()
     msm_gpu.LAUNCHES[0] = 0
     ntt_mm.LAUNCHES[0] = 0
+    ntt_mm.NORM_LAUNCHES[0] = 0
 
 
 def counts():
     return {"field_ops": sum(fcuda.LAUNCHES.values()),
             "field_by_op": dict(fcuda.LAUNCHES),
-            "msm_scan": msm_gpu.LAUNCHES[0], "digit_mm": ntt_mm.LAUNCHES[0]}
+            "msm_scan": msm_gpu.LAUNCHES[0], "digit_mm": ntt_mm.LAUNCHES[0],
+            "digit_mm_norm": ntt_mm.NORM_LAUNCHES[0]}
+
+
+@contextlib.contextmanager
+def fused_ntt(on: bool):
+    """Set (or unset) SNARKJS_NTT_FUSED for a block, then restore it."""
+    old = os.environ.pop(FUSED, None)
+    if on:
+        os.environ[FUSED] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(FUSED, None)
+        if old is not None:
+            os.environ[FUSED] = old
 
 
 # ------------------------------------------------------------------ inputs
@@ -226,14 +262,31 @@ def phase_kernels_small(dev, gen, tables):
         check(e == 0, f"K-scan {group} cw=8 differs from plain ({e})")
         errs["msm_scan"] = max(errs["msm_scan"], e)
         log(f"  K-scan {group} cw=8 2^12 points {tuple(xyT.shape)} == plain")
+    errs["digit_mm_norm"] = 0
+    for name in ("bn254_fr", "bls12_381_fr"):
+        fp = ftorch.get_ctx(name).fp
+        for k, r, q, m in ((10, 1024, 1024, 1024), (2, 4, 4, 1 << 16),
+                           (10, 1024, 1024, 4), (None, 70, 33, 50)):
+            W8, D8 = mm_inputs(dev, gen, name, k, r, q, m)
+            got = ntt_mm.digit_mm_norm(fp, W8, D8)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, ntt_mm.digit_mm_norm_plain(fp, W8, D8))
+            check(e == 0, f"K-mm-norm {name} {(r, q, m)} differs from plain ({e})")
+        log(f"  K-mm-norm {name}: 1024^3, (4,4,2^16), (1024,1024,4), (70,33,50) "
+            "== plain, limb for limb")
     return errs
 
 
-def mm_inputs(dev, gen):
-    fp = ftorch.get_ctx("bn254_fr").fp
-    W8 = torch.from_numpy(ntt_mm._w_matrix_digits(fp.name, 10, False)).to(dev)
-    D8 = ntt_mm._to_digits(fp, rand_field(fp, 1 << 20, dev, gen).reshape(
-        fp.nl, 1024, 1024))
+def mm_inputs(dev, gen, name="bn254_fr", k=10, r=1024, q=1024, m=1024):
+    """Digit-matmul operands: the size-2^k DFT matrix (random digits when k is
+    None) and the digits of q*m random field elements."""
+    fp = ftorch.get_ctx(name).fp
+    if k is None:
+        W8 = torch.randint(-128, 128, (fp.n8 + 1, r, q), generator=gen, device=dev,
+                           dtype=torch.int8)
+    else:
+        W8 = torch.from_numpy(ntt_mm._w_matrix_digits(fp.name, k, False)).to(dev)
+    D8 = ntt_mm._to_digits(fp, rand_field(fp, q * m, dev, gen).reshape(fp.nl, q, m))
     return W8, D8
 
 
@@ -254,6 +307,25 @@ def phase_fixture(dev):
     bad = [str(int(publics[0]) + 1)] + publics[1:]
     check(not groth16.verify(vk, bad, proof), "tampered public accepted")
     log("  tiny bn128 fixture: proof bytes == stored JAX proof; verified; "
+        "tampered public rejected")
+
+
+def phase_plonk_fixture(dev):
+    with open(os.path.join(FIXTURES, "tiny_plonk_bn128_proof.json")) as f:
+        want = json.load(f)
+    zk = os.path.join(FIXTURES, "tiny_plonk_bn128.zkey")
+    with fused_ntt(True):
+        proof, publics = plonk.prove_files(
+            zk, os.path.join(FIXTURES, "tiny_plonk_bn128.wtns"), b=want["b"],
+            device=dev)
+    check(json.dumps([proof, publics]) ==
+          json.dumps([want["proof"], want["publicSignals"]]),
+          "tiny PLONK fixture proof differs from the stored JAX proof")
+    vk = plonk.export_verification_key(read_plonk_zkey(zk))
+    check(plonk.verify(vk, publics, proof), "tiny PLONK proof does not verify")
+    bad = [str(int(publics[0]) + 1)] + publics[1:]
+    check(not plonk.verify(vk, bad, proof), "tampered public accepted (PLONK)")
+    log("  tiny bn128 PLONK fixture: proof bytes == stored JAX proof; verified; "
         "tampered public rejected")
 
 
@@ -285,7 +357,8 @@ def phase_full_prove(dev, tables):
     launches = counts()
     log(f"  warm prove: {prove_ms:.1f} ms; launches {launches}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] > 0
-          and launches["digit_mm"] > 0, "a kernel of the path was not launched")
+          and launches["digit_mm"] > 0 and launches["digit_mm_norm"] == 0,
+          "a kernel of the Groth16 path was not launched (or K-mm-norm was)")
     check(launches["digit_mm"] == 12, "expected 12 K-mm launches (6 NTTs of 2^20)")
 
     # closed forms of the five MSMs
@@ -351,6 +424,34 @@ def bound(nbytes, ops, rate):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def profile_busy(fn, warm_ms):
+    """One run of `fn` under torch.profiler: device time per kernel, and the
+    busy share as that device time over `warm_ms`, the same work's warm wall
+    time without the profiler (the profiler stretches the host side)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, _ = wall_ms(fn)
+    by_kernel = {}
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0)
+        if t > 0:
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + t / 1e3
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    if busy == 0:
+        log("  profiler: no device time recorded (device busy share not measured)")
+        return None
+    log(f"  profiled prove: wall {wall:.1f} ms (profiler on), device busy "
+        f"{busy:.1f} ms; over the unprofiled warm prove ({warm_ms:.1f} ms): "
+        f"busy {100 * busy / warm_ms:.1f}%, idle {100 - 100 * busy / warm_ms:.1f}%")
+    for k, v in top:
+        log(f"    {v:9.2f} ms  {k[:90]}")
+    return busy
+
+
 def phase_breakdown(dev, zkey, wit, prove_ms):
     """Where the warm prove's time goes: the QAP and each MSM alone (host
     clock around synchronised work), then one prove under torch.profiler
@@ -374,27 +475,7 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
         parts[name] = wall_ms(lambda: m.run(*pts, sc))[0]
     log("  stage ms: " + json.dumps({k: round(v, 1) for k, v in parts.items()}))
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall, _ = wall_ms(lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev))
-    by_kernel = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0)
-        if t > 0:
-            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + t / 1e3
-    busy = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    if busy == 0:
-        log("  profiler: no device time recorded (device busy share not measured)")
-    else:
-        log(f"  profiled prove: wall {wall:.1f} ms (profiler on), device busy "
-            f"{busy:.1f} ms; over the unprofiled warm prove ({prove_ms:.1f} ms): "
-            f"busy {100 * busy / prove_ms:.1f}%, idle {100 - 100 * busy / prove_ms:.1f}%")
-        for k, v in top:
-            log(f"    {v:9.2f} ms  {k[:90]}")
+    profile_busy(lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev), prove_ms)
     return parts
 
 
@@ -464,6 +545,11 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs):
     lib = torch._int_mm(Wcat, toe).reshape(r, nc, mm).permute(1, 0, 2)
     check(max_abs_err(lib, got) == 0, "torch._int_mm yardstick differs from K-mm")
     library_ms = cuda_ms(lambda: torch._int_mm(Wcat, toe), 3)
+    # the library's way to the normalised limbs: the same _int_mm, then the
+    # PyTorch _normalize_cols on its columns
+    fp = ctx.fp
+    lib_norm_ms = cuda_ms(lambda: ntt_mm._normalize_cols(fp, lib), 3)
+    lib_limbs = ntt_mm._normalize_cols(fp, lib)
     del toe, lib, want
     bms, by = bound(W8.numel() + D8.numel() + got.numel() * 4,
                     2 * nd * nd * r * q * mm, INT8_OPS_PER_S)
@@ -471,7 +557,212 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs):
         f"{plain_ms:.1f} ms  torch._int_mm {library_ms:.3f} ms  bound {bms:.3f} ms ({by})")
     entries["digit_mm"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                            "bound_by": by, "library_ms": library_ms}
+
+    # K-mm-norm at the same 1024^3 stage (12 of the 20 stages of a PLONK prove)
+    gotn = ntt_mm.digit_mm_norm(fp, W8, D8)
+    plain_n_ms, wantn = wall_ms(lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
+    e = max(max_abs_err(gotn, wantn), max_abs_err(gotn, lib_limbs))
+    check(e == 0, f"K-mm-norm differs from plain or from _int_mm + normalize ({e})")
+    errs["digit_mm_norm"] = max(errs["digit_mm_norm"], e)
+    ms_n = cuda_ms(lambda: ntt_mm.digit_mm_norm(fp, W8, D8), 5)
+    unfused_ms = cuda_ms(lambda: ntt_mm._normalize_cols(fp, ntt_mm.digit_mm(W8, D8)), 5)
+    bms, by = bound(W8.numel() + D8.numel() + gotn.numel() * 4,
+                    2 * nd * nd * r * q * mm, INT8_OPS_PER_S)
+    log(f"  K-mm-norm (33,1024,1024)x(33,1024,1024) == plain: {ms_n:.3f} ms  "
+        f"K-mm + PyTorch _normalize_cols {unfused_ms:.3f} ms  plain {plain_n_ms:.1f} ms  "
+        f"torch._int_mm + _normalize_cols {library_ms:.3f} + {lib_norm_ms:.3f} ms  "
+        f"bound {bms:.3f} ms ({by})")
+    entries["digit_mm_norm"] = {
+        "ms": ms_n, "plain_ms": plain_n_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": library_ms + lib_norm_ms, "unfused_ms": unfused_ms}
     return entries
+
+
+# ------------------------------------------------------------- PLONK phases
+
+def plonk_circuit(fr):
+    """The squaring chain as an r1cs (wire 0 = 1, wire 1 = public x,
+    wire i+2 = wire_{i+1}^2) with its witness."""
+    nc = PLONK_CONSTRAINTS
+    i = np.arange(nc, dtype=np.int32)
+    r1cs = R1cs(
+        n8=fr.n8, prime=fr.p, n_wires=nc + 2, n_pub_out=0, n_pub_in=1, n_prv_in=0,
+        n_labels=nc + 2, n_constraints=nc, m=np.tile(np.array([0, 1, 2], np.int32), nc),
+        c=np.repeat(i, 3), s=np.stack([i + 1, i + 1, i + 2], 1).reshape(-1),
+        vals=np.tile(np.array(fr.limbs(1), dtype=np.uint32)[:, None], (1, 3 * nc)))
+    w = [1, 0xDEADBEEF]
+    for _ in range(nc):
+        w.append(w[-1] * w[-1] % fr.p)
+    return r1cs, Witness(n8=fr.n8, q=fr.p, n=len(w), values=ftorch.np_from_ints(fr, w))
+
+
+def plonk_synthetic_key(cv, tables, r1cs, dev):
+    """The PLONK key of `r1cs`, written by the port's own writer on the card.
+    The SRS is tiled from the 512 multiples of G1 (point i is ((i mod 512) +
+    1) G), and the key's commitments are the closed forms over that tiling."""
+    fr, fq = cv.fr, cv.fq
+    domain = 1 << max((r1cs.n_constraints + r1cs.n_public - 1).bit_length(), 3)
+    M = domain + 6
+    (gx, gy), _ = tables
+    ptau_lem = pcodec.g1_lem_to_bytes(fq, tiled(gx, M), tiled(gy, M),
+                                      np.zeros(M, dtype=bool))
+
+    def commit(vals_plain):
+        k = sum(v * (i % 512 + 1) for i, v in enumerate(vals_plain)) % fr.p
+        return hc.g1_mul(cv, cv.g1, k)
+
+    zbytes = plonk_setup._write_plonk_zkey(cv, r1cs, commit, ptau_lem,
+                                           hc.g2_mul(cv, cv.g2, 5), device=dev)
+    zk = read_plonk_zkey(zbytes)
+    check(zk.domain_size == domain and zk.ptau[2].shape[0] == M,
+          "synthetic PLONK key has an unexpected domain or SRS length")
+    return zk, len(zbytes)
+
+
+def plain_ints(ctx, t):
+    """(NL, n) Montgomery tensor on the card -> list of plain ints."""
+    return ftorch.np_to_ints(ctx.fp, ftorch.from_mont(ctx, t.contiguous()))
+
+
+def horner(coefs, x, p):
+    acc = 0
+    for c in reversed(coefs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+POINTS = ("A", "B", "C", "Z", "T1", "T2", "T3", "Wxi", "Wxiw")
+EVALS = ("eval_a", "eval_b", "eval_c", "eval_s1", "eval_s2", "eval_zw")
+
+
+def check_plonk_proof(cv, zk, proof, publics, out, dev):
+    """A key tiled from 512 points has no tau, so no pairing check: instead
+    every commitment against its closed form, every evaluation against host
+    Horner over the downloaded polynomials, and the quotient identity at xi,
+    all on host bigints."""
+    fr = cv.fr
+    p = fr.p
+    ctx = ftorch.get_ctx(fr.name)
+    n = zk.domain_size
+    pts = {k: plonk._g1_from_obj(proof[k]) for k in POINTS}
+    evals = {k: int(proof[k]) for k in EVALS}
+    for name in POINTS:
+        k = weighted_sum(ftorch.from_mont(ctx, out[name].contiguous()), 512, p)
+        check(hc.g1_mul(cv, cv.g1, k) == pts[name],
+              f"PLONK commitment {name} differs from its closed form")
+    log("  nine commitments == closed forms on host bigints")
+
+    vk = {"Qm": zk.qm, "Ql": zk.ql, "Qr": zk.qr, "Qo": zk.qo, "Qc": zk.qc,
+          "S1": zk.s1, "S2": zk.s2, "S3": zk.s3}
+    pubs = [int(x) for x in publics]
+    ch = plonk.compute_challenges(cv, vk, pubs, pts, evals)
+    beta, gamma, alpha, xi = ch["beta"], ch["gamma"], ch["alpha"], ch["xi"]
+    w = fr.w[zk.power]
+    pol = {name: plain_ints(ctx, out[name]) for name in ("A", "B", "C", "Z", "T1", "T2", "T3")}
+    keyp = lambda name: plain_ints(ctx, ftorch.to_tensor(getattr(zk, name + "_p4")[0], dev))
+    at = lambda name, x: horner(keyp(name), x, p)
+    s1, s2, s3 = at("sigma1", xi), at("sigma2", xi), at("sigma3", xi)
+    host = {"eval_a": horner(pol["A"], xi, p), "eval_b": horner(pol["B"], xi, p),
+            "eval_c": horner(pol["C"], xi, p), "eval_s1": s1, "eval_s2": s2,
+            "eval_zw": horner(pol["Z"], xi * w % p, p)}
+    for name in EVALS:
+        check(host[name] == evals[name], f"PLONK {name} differs from host Horner")
+    log("  six evaluations == host Horner over the downloaded polynomials")
+
+    a, b, c, zw = evals["eval_a"], evals["eval_b"], evals["eval_c"], evals["eval_zw"]
+    z = horner(pol["Z"], xi, p)
+    xin = pow(xi, n, p)
+    zh = (xin - 1) % p
+    lag = lambda wi: wi * zh % p * pow(n * (xi - wi) % p, p - 2, p) % p
+    pi = -sum(x * lag(pow(w, i, p)) for i, x in enumerate(pubs)) % p
+    gate = (a * b * at("qm", xi) + a * at("ql", xi) + b * at("qr", xi)
+            + c * at("qo", xi) + pi + at("qc", xi)) % p
+    bx = beta * xi % p
+    perm = ((a + bx + gamma) * (b + bx * zk.k1 + gamma) * (c + bx * zk.k2 + gamma) * z
+            - (a + beta * s1 + gamma) * (b + beta * s2 + gamma)
+            * (c + beta * s3 + gamma) * zw) % p
+    rhs = (gate + alpha * perm + alpha * alpha * (z - 1) * lag(1)) % p
+    tval = (horner(pol["T1"], xi, p) + xin * horner(pol["T2"], xi, p)
+            + xin * xin * horner(pol["T3"], xi, p)) % p
+    check(tval * zh % p == rhs, "PLONK quotient identity fails at xi")
+    log("  quotient identity t(xi) * Z_H(xi) == gates + alpha * permutation + "
+        "alpha^2 * (z - 1) * L_1 holds at xi on host bigints")
+
+
+def phase_plonk_prove(dev, tables):
+    cv = hc.BN254
+    fr = cv.fr
+    t = time.perf_counter()
+    r1cs, wit = plonk_circuit(fr)
+    zk, nbytes = plonk_synthetic_key(cv, tables, r1cs, dev)
+    log(f"  2^{zk.power} PLONK key ({nbytes / 1e6:.0f} MB, {zk.n_constraints} gates, "
+        f"SRS {zk.ptau[2].shape[0]} points) + witness built in "
+        f"{time.perf_counter() - t:.1f} s")
+    check(zk.power == 18, "the PLONK domain is not 2^18")
+    b = list(range(101, 113))
+    with fused_ntt(True):
+        t = time.perf_counter()
+        plonk.prove(zk, wit, b=b, device=dev)
+        torch.cuda.synchronize()
+        log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
+        out = {}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        fused_ms, (proof, publics) = wall_ms(
+            lambda: plonk.prove(zk, wit, b=b, device=dev, out=out))
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+    log(f"  warm prove, {FUSED}=1: {fused_ms:.1f} ms; launches {launches}; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    check(launches["field_ops"] > 0 and launches["msm_scan"] == 9
+          and launches["digit_mm_norm"] == 20 and launches["digit_mm"] == 0,
+          "PLONK fused path: expected 9 K-scan, 20 K-mm-norm and no K-mm launches")
+    with fused_ntt(False):
+        plonk.prove(zk, wit, b=b, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        unfused_ms, got_u = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev))
+        launches_u = counts()
+        peak_u = torch.cuda.max_memory_allocated()
+    log(f"  warm prove, {FUSED} unset: {unfused_ms:.1f} ms; launches {launches_u}; "
+        f"peak device memory {peak_u / 2**30:.2f} GiB")
+    check(launches_u["digit_mm"] == 20 and launches_u["digit_mm_norm"] == 0,
+          "PLONK unfused path: expected 20 K-mm and no K-mm-norm launches")
+    check(json.dumps(got_u) == json.dumps([proof, publics]),
+          "fused and unfused PLONK proofs differ")
+    log("  fused proof == unfused proof")
+    check_plonk_proof(cv, zk, proof, publics, out, dev)
+    return zk, wit, b, fused_ms, unfused_ms, launches, launches_u
+
+
+class RoundClock:
+    """A logger for `plonk.prove`: the prover announces each round with
+    `debug`; this synchronises the card there and keeps the host time."""
+
+    def __init__(self):
+        self.marks = [("start", time.perf_counter())]
+
+    def debug(self, msg):
+        torch.cuda.synchronize()
+        self.marks.append((msg.split(":")[0], time.perf_counter()))
+
+    def rounds_ms(self, end):
+        names = ["before round 1"] + [m[0] for m in self.marks[1:]]
+        times = [m[1] for m in self.marks] + [end]
+        return {nm: round((t1 - t0) * 1e3, 1)
+                for nm, t0, t1 in zip(names, times, times[1:])}
+
+
+def phase_plonk_times(dev, zk, wit, b, fused_ms):
+    for on in (True, False):
+        with fused_ntt(on):
+            clock = RoundClock()
+            plonk.prove(zk, wit, b=b, device=dev, logger=clock)
+            torch.cuda.synchronize()
+            log(f"  rounds ms ({FUSED} {'= 1' if on else 'unset'}): "
+                + json.dumps(clock.rounds_ms(time.perf_counter())))
+    with fused_ntt(True):
+        profile_busy(lambda: plonk.prove(zk, wit, b=b, device=dev), fused_ms)
 
 
 def main():
@@ -479,6 +770,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    os.environ.pop(FUSED, None)   # the Groth16 phases run the unfused NTT route
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -501,14 +793,21 @@ def main():
     t = time.perf_counter()
     log("[kernels vs plain]")
     errs = phase_kernels_small(dev, gen, tables)
-    log(f"[fixture proof] ({time.perf_counter() - t:.1f} s so far)")
+    log(f"[fixture proofs] ({time.perf_counter() - t:.1f} s so far)")
     phase_fixture(dev)
+    phase_plonk_fixture(dev)
     log("[2^20 Groth16 prove]")
     zkey, wit, prove_ms, launches = phase_full_prove(dev, tables)
     log("[where the time goes]")
     phase_breakdown(dev, zkey, wit, prove_ms)
     log("[main-path shapes and times]")
     entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs)
+    del zkey, wit
+    torch.cuda.empty_cache()
+    log("[2^18 PLONK prove]")
+    pzk, pwit, pb, fused_ms, unfused_ms, pl, pl_u = phase_plonk_prove(dev, tables)
+    log("[where the PLONK prove's time goes]")
+    phase_plonk_times(dev, pzk, pwit, pb, fused_ms)
 
     scan_g1 = entries["msm_scan_g1"]
     rows = [
@@ -519,15 +818,25 @@ def main():
          dict(scan_g1, g2=entries["msm_scan_g2"])),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", entries["digit_mm"]),
+        ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
+         "snarkjs_tpu/ntt/ntt_mxu.py:457", entries["digit_mm_norm"]),
     ]
+    # `launches`: the count on the PLONK prove's path with the
+    # fused NTT route; K-mm is not on that route, so its count is the Groth16
+    # prove's.  Every path's count is kept beside it.
     kernels = []
     for kname, src, replaces, e in rows:
         kernels.append(dict({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": errs[kname],
-            "library_ms": None}, **e))
-    kernels[0]["launches_by_op"] = launches["field_by_op"]
+            "launches": pl[kname] or launches[kname], "max_abs_err": errs[kname],
+            "library_ms": None,
+            "launches_groth16": launches[kname], "launches_plonk": pl[kname],
+            "launches_plonk_unfused": pl_u[kname]}, **e))
+        check(kernels[-1]["launches"] > 0, f"{kname} was launched on no main path")
+    kernels[0]["launches_by_op"] = pl["field_by_op"]
+    kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     log(f"prove_2^20_warm_ms: {prove_ms}")
+    log(f"plonk_prove_2^18_warm_ms: fused {fused_ms} unfused {unfused_ms}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

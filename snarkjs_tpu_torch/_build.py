@@ -19,7 +19,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 OUT = os.path.join(_HERE, "_build")
-SOURCES = ("field_ops", "msm_scan", "digit_mm")
+SOURCES = ("field_ops", "msm_scan", "digit_mm", "digit_mm_norm")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()

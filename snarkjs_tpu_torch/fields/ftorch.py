@@ -207,6 +207,10 @@ def mont_mul(ctx: FieldCtx, a, b):
     return _mont_mul_plain(ctx, a, b)
 
 
+def mont_sqr(ctx: FieldCtx, a):
+    return mont_mul(ctx, a, a)
+
+
 def to_mont(ctx: FieldCtx, a):
     return mont_mul(ctx, a, ctx.r2(a))
 
@@ -220,6 +224,75 @@ def from_mont(ctx: FieldCtx, a):
 
 def is_zero(ctx: FieldCtx, a):
     return (a == 0).all(dim=0)
+
+
+def eq(ctx: FieldCtx, a, b):
+    return (a == b).all(dim=0)
+
+
+# ------------------------------------------------- scans, powers, inverses
+
+def assoc_scan(op, elems):
+    """Inclusive scan along axis 1 in log depth (the port's stand-in for
+    jax.lax.associative_scan).  `elems` is a tensor or a tuple of tensors of
+    one shape; `op(left, right)` combines two such values elementwise and must
+    be associative.  Step k combines every element with the one k places
+    before it, so the field ops inside `op` run ceil(log2 n) times."""
+    single = isinstance(elems, torch.Tensor)
+    xs = (elems,) if single else tuple(elems)
+    n = xs[0].shape[1]
+    k = 1
+    while k < n:
+        left = tuple(x[:, :n - k] for x in xs)
+        right = tuple(x[:, k:] for x in xs)
+        comb = op(left[0], right[0]) if single else op(left, right)
+        comb = (comb,) if single else tuple(comb)
+        xs = tuple(torch.cat([x[:, :k], c], dim=1) for x, c in zip(xs, comb))
+        k *= 2
+    return xs[0] if single else xs
+
+
+def exp_const(ctx: FieldCtx, a, e: int):
+    """a^e for a Python-int exponent (Montgomery in and out): square and
+    multiply from the top bit.  e = 0 gives one."""
+    if e == 0:
+        return ctx.one(a.shape[1:], a.device)
+    r = None
+    for bit in bin(e)[2:]:
+        if r is not None:
+            r = mont_sqr(ctx, r)
+        if bit == "1":
+            r = a if r is None else mont_mul(ctx, r, a)
+    return r
+
+
+def inv(ctx: FieldCtx, a):
+    """a^-1 by Fermat's exponent p - 2.  0 -> 0."""
+    return exp_const(ctx, a, ctx.fp.p - 2)
+
+
+def batch_inverse(ctx: FieldCtx, a, axis: int = -1):
+    """Montgomery batch inversion along `axis` (a batch axis, never the limb
+    axis 0): prefix and suffix products by two log-depth scans and one
+    inversion of the total.  Zeros map to zeros, as in fjnp.batch_inverse."""
+    if axis < 0:
+        axis += a.dim()
+    if axis == 0:
+        raise ValueError("axis 0 is the limb axis")
+    x = a.movedim(axis, 1)
+    zmask = is_zero(ctx, x)
+    one = ctx.one((1,) * (x.dim() - 1), x.device)
+    ax = torch.where(zmask[None], one, x)
+    mul = lambda l, r: mont_mul(ctx, l, r)
+    pref = assoc_scan(mul, ax)
+    suf = assoc_scan(mul, ax.flip(1)).flip(1)
+    tinv = inv(ctx, pref[:, -1:].contiguous())
+    edge = one.expand((ctx.nl, 1) + tuple(x.shape[2:]))
+    pref_shift = torch.cat([edge, pref[:, :-1]], dim=1)
+    suf_shift = torch.cat([suf[:, 1:], edge], dim=1)
+    out = mont_mul(ctx, mont_mul(ctx, pref_shift, suf_shift), tinv)
+    out = torch.where(zmask[None], torch.zeros_like(out), out)
+    return out.movedim(1, axis)
 
 
 # ------------------------------------------- host <-> tensor conversions

@@ -156,3 +156,64 @@ def coset_shift(ctx: FieldCtx, coeffs, inc: int | None = None):
     if inc is None:
         inc = fp.w[k + 1] if k < fp.s else fp.shift
     return apply_powers(ctx, coeffs, 1, inc)
+
+
+def extend_evaluations(ctx: FieldCtx, coeffs, factor: int = 4):
+    """Zero-pad coefficients to factor*n and evaluate (Evaluations.fromPolynomial,
+    reference src/polynomial/evaluations.js:30-37)."""
+    n = coeffs.shape[1]
+    return ntt(ctx, torch.nn.functional.pad(coeffs, (0, (factor - 1) * n)))
+
+
+# --------- one level beyond the field's 2-adicity (size 2^(s+1)) ---------
+
+def _mont_scalar(ctx: FieldCtx, v: int, device):
+    fp = ctx.fp
+    return ftorch.to_tensor(ftorch.np_from_int(fp, fp.to_mont(v % fp.p)),
+                            device).reshape(fp.nl, 1)
+
+
+def intt_union(ctx: FieldCtx, a, s_log: int | None = None,
+               shift: int | None = None):
+    """Inverse transform of size 2m = 2^(s_log+1) over the union domain
+    D = H u shift*H (H = the 2^s_log roots of unity), the reference's shift
+    decomposition for sizes one level past the field's 2-adicity
+    (src/powersoftau_preparephase2.js:91-138):
+
+        t0_i = (t_i*shift^m - t_{m+i}) / (shift^m - 1)
+        t1_i = (t_{m+i} - t_i) * shift^-i / (shift^m - 1)
+        out  = [intt(t0), intt(t1)]
+
+    a: (NL, 2m) evaluations [f(w^i)..., f(shift*w^i)...], Montgomery."""
+    fp = ctx.fp
+    s_log = fp.s if s_log is None else s_log
+    shift = fp.shift if shift is None else shift
+    m = a.shape[-1] // 2
+    assert m == 1 << s_log, "size must be 2^(s_log+1)"
+    p = fp.p
+    S = pow(shift, m, p)
+    d = pow((S - 1) % p, p - 2, p)
+    t, tm = a[:, :m], a[:, m:]
+    Sm = _mont_scalar(ctx, S, a.device)
+    dm = _mont_scalar(ctx, d, a.device)
+    t0 = ftorch.mont_mul(ctx, ftorch.sub(ctx, ftorch.mont_mul(ctx, t, Sm), tm), dm)
+    t1 = apply_powers(ctx, ftorch.sub(ctx, tm, t), d, pow(shift, p - 2, p))
+    return torch.cat([intt(ctx, t0), intt(ctx, t1)], dim=-1)
+
+
+def ntt_union(ctx: FieldCtx, a, s_log: int | None = None,
+              shift: int | None = None):
+    """Forward counterpart of intt_union: coefficient blocks [c0, c1] ->
+    evaluations on H u shift*H:  t_i = u_i + shift^i*v_i,
+    t_{m+i} = u_i + shift^m*shift^i*v_i  with u = ntt(c0), v = ntt(c1)."""
+    fp = ctx.fp
+    s_log = fp.s if s_log is None else s_log
+    shift = fp.shift if shift is None else shift
+    m = a.shape[-1] // 2
+    assert m == 1 << s_log, "size must be 2^(s_log+1)"
+    S = pow(shift, m, fp.p)
+    u = ntt(ctx, a[:, :m])
+    v = apply_powers(ctx, ntt(ctx, a[:, m:]), 1, shift)
+    t = ftorch.add(ctx, u, v)
+    tm = ftorch.add(ctx, u, ftorch.mont_mul(ctx, v, _mont_scalar(ctx, S, a.device)))
+    return torch.cat([t, tm], dim=-1)

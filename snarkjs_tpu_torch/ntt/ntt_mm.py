@@ -13,12 +13,20 @@ sum w*(xR) = (sum w*x)*R.
 as exact matmuls: int64 on the CPU, float64 on the card (every column is
 below 2^31 < 2^53, and torch has no general integer GEMM on CUDA).
 `LAUNCHES` counts K-mm launches.
+
+`digit_mm_norm` replaces ntt_mxu._pallas_mm_norm: the same product with
+`_normalize_cols` as the kernel's epilogue (kernel K-mm-norm,
+csrc/digit_mm_norm.cu), so the columns never reach device memory.  Its plain
+version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`; `NORM_LAUNCHES`
+counts its launches.  `_mm_stage` takes it when SNARKJS_NTT_FUSED=1, the
+switch of the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
@@ -30,6 +38,7 @@ from ..fields.params import FieldParams, get_params
 
 MAX_LOG_R = 10          # largest direct DFT matmul: 1024 x 1024
 LAUNCHES = [0]
+NORM_LAUNCHES = [0]
 
 
 def _nd(fp: FieldParams) -> int:
@@ -284,6 +293,71 @@ def digit_mm(W8, D8):
     return out
 
 
+# ----------------------------------------------------- K-mm-norm and its twin
+
+def digit_mm_norm_plain(fp: FieldParams, W8, D8):
+    """Canonical limbs of sum_c cols[c]*256^c mod p, the columns in memory."""
+    return _normalize_cols(fp, digit_mm_plain(W8, D8))
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_consts(field_name: str) -> bytes:
+    """The kernel's per-field tables as the bytes of its argument struct:
+    F (nh+1, n8+1) int8 row-major, padded to a multiple of 4; then p and the
+    compensation constant as nl+1 int32 limbs each; then mu as one u32."""
+    fp = get_params(field_name)
+    nh, F = _fold_tables(field_name, 2 * _nd(fp) - 1)
+    shift, mu, p_limbs, c_limbs = _barrett_consts(field_name, nh)
+    if shift != fp.n8 * 8 - 6 or not 0 < mu < 1 << 32:
+        raise ValueError("K-mm-norm: unexpected Barrett constants")
+    fb = np.ascontiguousarray(F, dtype=np.int8).tobytes()
+    fb += b"\0" * (-len(fb) % 4)
+    words = np.array(list(p_limbs) + list(c_limbs) + [mu], dtype="<u4")
+    return fb + words.tobytes()
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_lib():
+    lib = _build.library("digit_mm_norm")
+    lib.snark_digit_mm_norm.restype = ctypes.c_int
+    lib.snark_digit_mm_norm.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 4 + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+    lib.snark_digit_mm_norm_consts_bytes.restype = ctypes.c_int
+    lib.snark_digit_mm_norm_consts_bytes.argtypes = []
+    return lib
+
+
+def digit_mm_norm(fp: FieldParams, W8, D8):
+    """W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> (nl, r, m) limbs in [0, p).
+
+    CUDA tensors launch K-mm-norm; CPU tensors take `digit_mm_norm_plain`."""
+    if not ftorch.use_kernel(D8):
+        return digit_mm_norm_plain(fp, W8, D8)
+    nd, r, q = W8.shape
+    if (W8.dtype != torch.int8 or D8.dtype != torch.int8
+            or W8.device != D8.device or D8.shape[:2] != (nd, q)):
+        raise ValueError("K-mm-norm takes int8 W8 (nd, r, q) and D8 (nd, q, m) "
+                         "on one device")
+    if nd != _nd(fp) or fp.n8 != 32:
+        raise ValueError("K-mm-norm is built for 32-byte fields (nd = 33)")
+    # the kernel loads rows as 32-bit words where q or m is a multiple of 4
+    W8, D8 = (t.contiguous() if t.data_ptr() % 4 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (W8, D8))
+    m = D8.shape[2]
+    consts = _norm_consts(fp.name)
+    lib = _norm_lib()
+    if lib.snark_digit_mm_norm_consts_bytes() != len(consts):
+        raise RuntimeError("K-mm-norm: constants layout differs from the kernel's")
+    out = torch.empty((fp.nl, r, m), dtype=ftorch.DTYPE, device=D8.device)
+    if out.numel():
+        err = lib.snark_digit_mm_norm(
+            W8.data_ptr(), D8.data_ptr(), out.data_ptr(), nd, r, q, m, consts,
+            len(consts), _build.stream_ptr(D8.device))
+        _build.check(err, "K-mm-norm")
+        NORM_LAUNCHES[0] += 1
+    return out
+
+
 # --------------------------------------------------------------- the NTT
 
 @functools.lru_cache(maxsize=None)
@@ -295,7 +369,10 @@ def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, a):
     """Direct DFT matmul along axis 1: a (nl, r, m) -> (nl, r, m)."""
     fp = ctx.fp
     W8 = _w_matrix_on(fp.name, k, inverse, str(a.device))
-    return _normalize_cols(fp, digit_mm(W8, _to_digits(fp, a)))
+    D8 = _to_digits(fp, a)
+    if os.environ.get("SNARKJS_NTT_FUSED") == "1":
+        return digit_mm_norm(fp, W8, D8)
+    return _normalize_cols(fp, digit_mm(W8, D8))
 
 
 def _ntt_axis1(ctx: FieldCtx, a, inverse: bool):

@@ -10,6 +10,7 @@ import pytest
 
 from snarkjs_tpu.fields import fjnp
 from snarkjs_tpu_torch.fields import ftorch
+from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 FIELDS = ["bn254_fr", "bn254_fq", "bls12_381_fr", "bls12_381_fq"]
 
@@ -78,3 +79,54 @@ def test_broadcast_matches_fjnp():
     got = ftorch.mont_mul(ctx_t, ftorch.to_tensor(A, "cpu"),
                           ftorch.to_tensor(col, "cpu"))
     np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fq"])
+@pytest.mark.parametrize("e", [0, 1, 2, 0xF00D, "p-2"])
+def test_exp_const_and_inv_match_fjnp(name, e):
+    ctx_j, ctx_t, A, _ = _pair(name)
+    A = A[:, :9]
+    if e == "p-2":
+        want = np.asarray(fjnp.inv(ctx_j, jnp.asarray(A)))
+        got = ftorch.inv(ctx_t, ftorch.to_tensor(A, "cpu"))
+        assert ftorch.np_to_ints(ctx_t.fp, got)[0] == 0     # 0 -> 0
+    else:
+        want = np.asarray(fjnp.exp_const(ctx_j, jnp.asarray(A), e))
+        got = ftorch.exp_const(ctx_t, ftorch.to_tensor(A, "cpu"), e)
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fr"])
+def test_batch_inverse_with_zeros_matches_fjnp(name):
+    ctx_j, ctx_t = fjnp.get_ctx(name), ftorch.get_ctx(name)
+    fp = ctx_j.fp
+    vals = _values(fp, 4, n=21)          # starts 0, 1, p-1
+    vals[7] = vals[8] = vals[-1] = 0     # zeros interspersed and at the end
+    A = fjnp.np_from_ints(fp, [fp.to_mont(v) for v in vals])
+    want = np.asarray(fjnp.batch_inverse(ctx_j, jnp.asarray(A), axis=1))
+    got = ftorch.batch_inverse(ctx_t, ftorch.to_tensor(A, "cpu"), axis=1)
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+    ints = [fp.from_mont(v) for v in ftorch.np_to_ints(fp, got)]
+    assert ints == [pow(v, fp.p - 2, fp.p) for v in vals]
+    A3 = A.reshape(fp.nl, 4, 6)
+    for axis in (1, 2, -1):
+        want = np.asarray(fjnp.batch_inverse(ctx_j, jnp.asarray(A3), axis=axis))
+        got = ftorch.batch_inverse(ctx_t, ftorch.to_tensor(A3, "cpu"), axis=axis)
+        np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+    with pytest.raises(ValueError, match="limb axis"):
+        ftorch.batch_inverse(ctx_t, ftorch.to_tensor(A, "cpu"), axis=0)
+
+
+def test_eq_sqr_one_match_fjnp():
+    ctx_j, ctx_t, A, B = _pair("bn254_fr")
+    B = B.copy()
+    B[:, ::3] = A[:, ::3]
+    At, Bt = ftorch.to_tensor(A, "cpu"), ftorch.to_tensor(B, "cpu")
+    np.testing.assert_array_equal(
+        ftorch.eq(ctx_t, At, Bt).numpy(),
+        np.asarray(fjnp.eq(ctx_j, jnp.asarray(A), jnp.asarray(B))))
+    np.testing.assert_array_equal(
+        ftorch.to_numpy(ftorch.mont_sqr(ctx_t, At)),
+        np.asarray(fjnp.mont_sqr(ctx_j, jnp.asarray(A))))
+    np.testing.assert_array_equal(ftorch.to_numpy(ctx_t.one((2, 3))),
+                                  np.asarray(ctx_j.one((2, 3))))

@@ -22,6 +22,7 @@ from snarkjs_tpu.protocols import groth16_setup
 from snarkjs_tpu_torch import convert
 from snarkjs_tpu_torch.formats import zkey as tzkey
 from snarkjs_tpu_torch.protocols import groth16 as tg
+from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")

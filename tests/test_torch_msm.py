@@ -18,6 +18,7 @@ from snarkjs_tpu.fields import fjnp
 from snarkjs_tpu_torch.curves import msm as tmsm
 from snarkjs_tpu_torch.curves import msm_gpu
 from snarkjs_tpu_torch.fields import ftorch
+from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 CW, NW = 8, 2
 

@@ -17,6 +17,7 @@ from snarkjs_tpu.ntt import ntt_mxu
 from snarkjs_tpu_torch.fields import ftorch
 from snarkjs_tpu_torch.ntt import ntt as tntt
 from snarkjs_tpu_torch.ntt import ntt_mm
+from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 FR = "bn254_fr"
 
@@ -89,3 +90,101 @@ def test_normalize_cols_matches_jax():
     want = np.asarray(ntt_mxu._normalize_cols(fp, jnp.asarray(cols)))
     got = ntt_mm._normalize_cols(fp, torch.tensor(cols))
     np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+# ------------------------------------------- the fused digit matmul (K-mm-norm)
+
+def test_digit_mm_norm_plain_matches_pallas_interpret():
+    """The shape of tests/test_ntt_mxu.py's fused-kernel case: r = 256,
+    m = 128, k = 8, against the Pallas kernel in interpret mode.  Exact."""
+    fp = fjnp.get_ctx(FR).fp
+    rng = np.random.default_rng(41)
+    r, m, k = 256, 128, 8
+    vals = [int.from_bytes(rng.bytes(40), "little") % fp.p for _ in range(r * m)]
+    a = fjnp.np_from_ints(fp, vals).reshape(fp.nl, r, m)
+    W8 = ntt_mxu._w_matrix_digits(fp.name, k, False)
+    D8 = ntt_mxu._to_digits(fp, jnp.asarray(a))
+    want = ntt_mxu._pallas_mm_norm(fp.name, r, r, m, 128, 128, interpret=True)(
+        jnp.asarray(W8), D8)
+    np.testing.assert_array_equal(
+        ntt_mm._w_matrix_digits(fp.name, k, False), W8)
+    got = ntt_mm.digit_mm_norm_plain(
+        ftorch.get_ctx(FR).fp, torch.tensor(W8), torch.tensor(np.asarray(D8)))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("field", [FR, "bls12_381_fr"])
+@pytest.mark.parametrize("r,q,m", [(4, 4, 24), (32, 32, 4), (5, 10, 6)])
+def test_digit_mm_norm_matches_normalized_einsum(field, r, q, m):
+    """Edge shapes (r or m = 4, and sizes that are no multiple of 4), both Fr
+    fields: the wrapper on CPU tensors against _normalize_cols(_einsum_mm)."""
+    fpj = fjnp.get_ctx(field).fp
+    rng = np.random.default_rng(r * 100 + m)
+    W8 = rng.integers(-128, 128, (fpj.n8 + 1, r, q)).astype(np.int8)
+    limbs = rng.integers(0, 1 << 16, (fpj.nl, q, m)).astype(np.uint32)
+    D8 = np.asarray(ntt_mxu._to_digits(fpj, jnp.asarray(limbs)))
+    want = ntt_mxu._normalize_cols(
+        fpj, ntt_mxu._einsum_mm(jnp.asarray(W8), jnp.asarray(D8)))
+    got = ntt_mm.digit_mm_norm(ftorch.get_ctx(field).fp, torch.tensor(W8),
+                               torch.tensor(D8))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), np.asarray(want))
+
+
+def test_norm_consts_layout():
+    """The kernel's argument struct: F row-major int8 padded to 4 bytes, then
+    p limbs, compensation limbs and mu as little-endian u32 words."""
+    for field in (FR, "bls12_381_fr"):
+        fp = ftorch.get_ctx(field).fp
+        blob = ntt_mm._norm_consts(field)
+        nh, F = ntt_mm._fold_tables(field, 2 * (fp.n8 + 1) - 1)
+        nf = (nh + 1) * (fp.n8 + 1)
+        assert len(blob) == (nf + 3) // 4 * 4 + 4 * (2 * (fp.nl + 1) + 1)
+        np.testing.assert_array_equal(
+            np.frombuffer(blob[:nf], dtype=np.int8).reshape(nh + 1, fp.n8 + 1), F)
+        words = np.frombuffer(blob[(nf + 3) // 4 * 4:], dtype="<u4")
+        p = sum(int(w) << (16 * i) for i, w in enumerate(words[:fp.nl + 1]))
+        assert p == fp.p
+        assert int(words[-1]) == (1 << (32 + fp.n8 * 8 - 6)) // fp.p
+
+
+@pytest.mark.parametrize("fn,k", [("ntt", 6), ("intt", 6), ("intt", 11)])
+def test_fused_route_equals_unfused(fn, k, monkeypatch):
+    A = ftorch.to_tensor(_data(k, 7), "cpu")
+    ctx = ftorch.get_ctx(FR)
+    want = getattr(ntt_mm, fn)(ctx, A)
+    calls = []
+    real = ntt_mm.digit_mm_norm
+    monkeypatch.setattr(ntt_mm, "digit_mm_norm",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setenv("SNARKJS_NTT_FUSED", "1")
+    got = getattr(ntt_mm, fn)(ctx, A)
+    assert calls, "SNARKJS_NTT_FUSED=1 did not take the fused route"
+    assert torch.equal(got, want)
+    monkeypatch.setenv("SNARKJS_NTT_FUSED", "0")
+    calls.clear()
+    assert torch.equal(getattr(ntt_mm, fn)(ctx, A), want) and not calls
+
+
+# ------------------------------------------------ extended and union domains
+
+@pytest.mark.parametrize("factor", [2, 4])
+def test_extend_evaluations_matches_jax(factor):
+    A = _data(5, 8)
+    want = np.asarray(jntt.extend_evaluations(fjnp.get_ctx(FR), jnp.asarray(A),
+                                              factor))
+    got = tntt.extend_evaluations(ftorch.get_ctx(FR), ftorch.to_tensor(A, "cpu"),
+                                  factor)
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+@pytest.mark.parametrize("fn", ["ntt_union", "intt_union"])
+def test_union_transforms_match_jax(fn):
+    A = _data(5, 9)
+    fp = fjnp.get_ctx(FR).fp
+    kw = dict(s_log=4, shift=fp.shift)
+    want = np.asarray(getattr(jntt, fn)(fjnp.get_ctx(FR), jnp.asarray(A), **kw))
+    got = getattr(tntt, fn)(ftorch.get_ctx(FR), ftorch.to_tensor(A, "cpu"), **kw)
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+    back = tntt.intt_union(ftorch.get_ctx(FR), tntt.ntt_union(
+        ftorch.get_ctx(FR), ftorch.to_tensor(A, "cpu"), **kw), **kw)
+    np.testing.assert_array_equal(ftorch.to_numpy(back), A)

@@ -28,8 +28,32 @@ PORT_MODULES = [
     "snarkjs_tpu_torch", "snarkjs_tpu_torch.protocols.groth16",
     "snarkjs_tpu_torch.convert", "snarkjs_tpu_torch.ntt.ntt_mm",
     "snarkjs_tpu_torch.curves.msm_gpu", "snarkjs_tpu_torch.fields.fcuda",
-    "snarkjs_tpu_torch._build",
+    "snarkjs_tpu_torch._build", "snarkjs_tpu_torch.protocols.plonk",
+    "snarkjs_tpu_torch.protocols.plonk_setup",
+    "snarkjs_tpu_torch.protocols.groth16_setup", "snarkjs_tpu_torch.poly.fops",
+    "snarkjs_tpu_torch.utils.keccak", "snarkjs_tpu_torch.formats.r1cs",
+    "snarkjs_tpu_torch.formats.zkey", "snarkjs_tpu_torch.ntt.ntt",
 ]
+
+
+def test_rule_covers_every_module_of_the_port():
+    """Every .py file of the package is imported by the rule above, by name or
+    by a listed module that imports it."""
+    pkg = os.path.join(ROOT, "snarkjs_tpu_torch")
+    names = []
+    for base, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith(".py") and fn != "__init__.py":
+                rel = os.path.relpath(os.path.join(base, fn), ROOT)
+                names.append(rel[:-3].replace(os.sep, "."))
+    imports = "\n".join(f"importlib.import_module({m!r})" for m in PORT_MODULES)
+    out = subprocess.run(
+        [sys.executable, "-c", "import importlib, sys\n" + imports
+         + "\nprint([m for m in %r if m not in sys.modules])" % names],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def _bad_modules(imports: str) -> str:
@@ -66,6 +90,45 @@ def test_default_device_raises_without_cuda(monkeypatch):
                        os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures",
                                     "tiny_bn128.wtns"), r=1, s=2)
     assert devmod.resolve("cpu").type == "cpu"
+
+
+def test_plonk_default_device_raises_without_cuda(monkeypatch):
+    from snarkjs_tpu_torch.formats import r1cs as tr1cs
+    from snarkjs_tpu_torch.protocols import plonk as tp
+    from snarkjs_tpu_torch.protocols import plonk_setup as tsetup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.prove_files(os.path.join(fx, "tiny_plonk_bn128.zkey"),
+                       os.path.join(fx, "tiny_plonk_bn128.wtns"),
+                       b=list(range(1, 13)))
+    empty = tr1cs.R1cs(n8=32, prime=0, n_wires=1, n_pub_out=0, n_pub_in=0,
+                       n_prv_in=0, n_labels=1, n_constraints=0,
+                       m=np.zeros(0, np.int32), c=np.zeros(0, np.int32),
+                       s=np.zeros(0, np.int32), vals=np.zeros((16, 0), np.uint32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsetup.setup_from_secrets(empty, 5)
+
+
+def test_kernel_wrappers_do_not_fall_back_on_cuda_tensors(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with the build made to
+    fail, the wrapper of K-mm-norm raises and never takes the plain version."""
+    from snarkjs_tpu_torch.ntt import ntt_mm
+
+    def boom(name):
+        raise RuntimeError("nvcc failed for " + name)
+
+    monkeypatch.setattr(ntt_mm._build, "library", boom)
+    monkeypatch.setattr(ntt_mm.ftorch, "use_kernel", lambda t: True)
+    monkeypatch.setattr(ntt_mm, "digit_mm_norm_plain",
+                        lambda *a: pytest.fail("took the plain version"))
+    ntt_mm._norm_lib.cache_clear()
+    fp = ftorch.get_ctx("bn254_fr").fp
+    W8 = torch.zeros((33, 4, 4), dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ntt_mm.digit_mm_norm(fp, W8, W8)
+    ntt_mm._norm_lib.cache_clear()
 
 
 def test_plain_versions_only_inside_context():
@@ -113,6 +176,25 @@ def test_k_mm_matches_plain_on_card(card):
     D8 = torch.randint(-128, 128, (33, 64, 96), generator=g, dtype=torch.int8)
     got = ntt_mm.digit_mm(W8.to(card), D8.to(card)).cpu()
     assert torch.equal(got, ntt_mm.digit_mm_plain(W8, D8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_381_fr"])
+@pytest.mark.parametrize("r,q,m", [(64, 64, 96), (4, 4, 256), (256, 256, 4),
+                                   (5, 10, 6)])
+def test_k_mm_norm_matches_plain_on_card(card, field, r, q, m):
+    from snarkjs_tpu_torch.ntt import ntt_mm
+
+    fp = ftorch.get_ctx(field).fp
+    g = torch.Generator().manual_seed(r + m)
+    W8 = torch.randint(-128, 128, (33, r, q), generator=g, dtype=torch.int8)
+    limbs = torch.randint(0, 1 << 16, (fp.nl, q, m), generator=g,
+                          dtype=torch.int32)
+    D8 = ntt_mm._to_digits(fp, limbs)
+    before = ntt_mm.NORM_LAUNCHES[0]
+    got = ntt_mm.digit_mm_norm(fp, W8.to(card), D8.to(card)).cpu()
+    assert ntt_mm.NORM_LAUNCHES[0] == before + 1
+    assert torch.equal(got, ntt_mm.digit_mm_norm_plain(fp, W8, D8))
 
 
 @pytest.mark.cuda
