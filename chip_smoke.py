@@ -32,7 +32,11 @@ Phases (any failure exits non-zero before the last line):
      SNARKJS_NTT_FUSED=1 (launch counts set to 0 just before, read just after)
      and without; nine commitments against their closed forms, six
      evaluations against host Horner, the quotient identity at xi on host
-     bigints, fused proof == unfused proof;
+     bigints, fused proof == unfused proof; then K-scan and K-mm-norm against
+     their plain versions at every shape that prove called them with (the
+     shapes are recorded during the counted prove: the scan input is rebuilt
+     from the key's SRS and the blinded polynomial A), each with its time and
+     bound;
   8. PLONK times: warm prove fused and unfused, rounds 1-5, peak memory, one
      prove under torch.profiler;
   9. the kernels line, then the contract line.
@@ -43,6 +47,7 @@ it (K-mm-norm), so both NTT kernels stay on a driven path.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -63,6 +68,7 @@ from snarkjs_tpu_torch.formats.r1cs import R1cs
 from snarkjs_tpu_torch.formats.wtns import Witness
 from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_plonk_zkey
 from snarkjs_tpu_torch.ntt import ntt_mm
+from snarkjs_tpu_torch.poly import fops
 from snarkjs_tpu_torch.protocols import groth16, plonk, plonk_setup
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -113,6 +119,11 @@ def wall_ms(fn):
     return (time.perf_counter() - t) * 1e3, out
 
 
+def shapes_json(shapes):
+    return json.dumps({k: {"x".join(map(str, sh)): n for sh, n in v.items()}
+                       for k, v in shapes.items() if v})
+
+
 def reset_counts():
     fcuda.reset_counts()
     msm_gpu.LAUNCHES[0] = 0
@@ -139,6 +150,33 @@ def fused_ntt(on: bool):
         os.environ.pop(FUSED, None)
         if old is not None:
             os.environ[FUSED] = old
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """Count, per kernel, the shapes its wrapper is called with in a block:
+    (r, q, m) for the two digit matmuls, the input's shape for the scan.  The
+    calls go on to the wrappers unchanged."""
+    seen = {k: collections.Counter() for k in ("digit_mm", "digit_mm_norm", "msm_scan")}
+    mm, mm_norm, scan = ntt_mm.digit_mm, ntt_mm.digit_mm_norm, msm_gpu.scan
+
+    def rec_mm(W8, D8):
+        seen["digit_mm"][(*W8.shape[1:], D8.shape[2])] += 1
+        return mm(W8, D8)
+
+    def rec_mm_norm(fp, W8, D8):
+        seen["digit_mm_norm"][(*W8.shape[1:], D8.shape[2])] += 1
+        return mm_norm(fp, W8, D8)
+
+    def rec_scan(fq, b, ext, xyT):
+        seen["msm_scan"][tuple(xyT.shape)] += 1
+        return scan(fq, b, ext, xyT)
+
+    ntt_mm.digit_mm, ntt_mm.digit_mm_norm, msm_gpu.scan = rec_mm, rec_mm_norm, rec_scan
+    try:
+        yield seen
+    finally:
+        ntt_mm.digit_mm, ntt_mm.digit_mm_norm, msm_gpu.scan = mm, mm_norm, scan
 
 
 # ------------------------------------------------------------------ inputs
@@ -351,11 +389,13 @@ def phase_full_prove(dev, tables):
     log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
 
     out = {}
-    reset_counts()
-    prove_ms, (proof, publics) = wall_ms(
-        lambda: groth16.prove(zkey, wit, r=r, s=s, device=dev, out=out))
-    launches = counts()
+    with recorded_shapes() as shapes:
+        reset_counts()
+        prove_ms, (proof, publics) = wall_ms(
+            lambda: groth16.prove(zkey, wit, r=r, s=s, device=dev, out=out))
+        launches = counts()
     log(f"  warm prove: {prove_ms:.1f} ms; launches {launches}")
+    log(f"  shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] > 0
           and launches["digit_mm"] > 0 and launches["digit_mm_norm"] == 0,
           "a kernel of the Groth16 path was not launched (or K-mm-norm was)")
@@ -386,7 +426,7 @@ def phase_full_prove(dev, tables):
     check(json.dumps(host_proof) == json.dumps(proof),
           "proof differs from the one assembled from the closed forms")
     log("  proof == proof assembled on host from the closed forms")
-    return zkey, wit, prove_ms, launches
+    return zkey, wit, prove_ms, launches, shapes
 
 
 def imad_per_s():
@@ -479,9 +519,60 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
     return parts
 
 
-def phase_main_shapes_and_times(dev, gen, zkey, wit, errs):
+def scan_case(cv, group, pts, scal, seen, path, rate32, errs):
+    """K-scan against its plain version on the input `run` builds for these
+    points and scalars, which must have a shape recorded in `seen`; its time
+    and bound at that shape."""
+    m = msm_gpu.get_msm(cv.name, group, cw=16)
+    xyT = m.scan_input(*pts, scal)
+    shape = tuple(xyT.shape)
+    check(shape in seen, f"K-scan {group} input {shape} is no shape of the {path} prove")
+    ms = cuda_ms(lambda: msm_gpu.scan(cv.fq, m.b, m.ext, xyT), 3)
+    got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
+    plain_ms, want = wall_ms(lambda: msm_gpu.scan_plain(cv.fq, m.b, m.ext, xyT))
+    e = max_abs_err(got, want)
+    check(e == 0, f"K-scan {group} {shape} differs from plain ({e})")
+    errs["msm_scan"] = max(errs["msm_scan"], e)
+    nw, C, nin, RL = shape
+    nbytes = xyT.numel() * 4 + got.numel() * 4
+    wide = nw * C * RL * madd_products(m.b, m.ext) * mont_mul_imads(cv.fq.nl // 2)
+    bms, by = bound(nbytes, wide, rate32)
+    log(f"  K-scan {group} {shape} x{seen[shape]} ({path}) == plain: {ms:.3f} ms  "
+        f"plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by})")
+    return {"path": path, "group": group, "shape": list(shape), "launches": seen[shape],
+            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def mm_case(dev, gen, kernel, shape, launches, path, errs):
+    """K-mm or K-mm-norm (bn254 Fr) against its plain version at one stage
+    shape (r, q, m), with its time and bound there."""
+    r, q, m = shape
+    fp = ftorch.get_ctx("bn254_fr").fp
+    W8, D8 = mm_inputs(dev, gen, "bn254_fr", r.bit_length() - 1, r, q, m)
+    if kernel == "digit_mm_norm":
+        fn, plain = (lambda: ntt_mm.digit_mm_norm(fp, W8, D8),
+                     lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
+    else:
+        fn, plain = (lambda: ntt_mm.digit_mm(W8, D8),
+                     lambda: ntt_mm.digit_mm_plain(W8, D8))
+    got = fn()
+    plain_ms, want = wall_ms(plain)
+    e = max_abs_err(got, want)
+    check(e == 0, f"{kernel} {shape} differs from plain ({e})")
+    errs[kernel] = max(errs[kernel], e)
+    ms = cuda_ms(fn, 5)
+    nd = W8.shape[0]
+    bms, by = bound(W8.numel() + D8.numel() + got.numel() * 4,
+                    2 * nd * nd * r * q * m, INT8_OPS_PER_S)
+    log(f"  {kernel} {shape} x{launches} ({path}) == plain: {ms:.3f} ms  "
+        f"plain {plain_ms:.1f} ms  bound {bms:.3f} ms ({by})")
+    return {"path": path, "shape": list(shape), "launches": launches, "max_abs_err": e,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     cv = hc.BN254
-    rate32 = imad_per_s()
     entries = {}
 
     # K-field at (16, 2^20), the NTT / coset shape
@@ -505,28 +596,23 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs):
             f"bound {bms:.4f} ms ({by})")
     entries["field_ops"] = dict(ops["mont_mul"], ops=ops)
 
-    # K-scan at the prove's shapes: the A (G1) and B2 (G2) MSM inputs
-    for group, which in (("g1", 0), ("g2", 2)):
-        m = msm_gpu.get_msm(cv.name, group, cw=16)
-        dp = groth16._dev_points(zkey, dev)[which]
-        xyT = m.scan_input(dp[0], dp[1], dp[2], ftorch.to_tensor(wit.values, dev))
-        ms = cuda_ms(lambda: msm_gpu.scan(cv.fq, m.b, m.ext, xyT), 3)
-        got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
-        plain_ms, want = wall_ms(lambda: msm_gpu.scan_plain(cv.fq, m.b, m.ext, xyT))
-        e = max_abs_err(got, want)
-        check(e == 0, f"K-scan {group} main shape differs from plain ({e})")
-        errs["msm_scan"] = max(errs["msm_scan"], e)
-        nw, C, nin, RL = xyT.shape
-        nbytes = xyT.numel() * 4 + got.numel() * 4
-        wide = nw * C * RL * madd_products(m.b, m.ext) * mont_mul_imads(cv.fq.nl // 2)
-        bms, by = bound(nbytes, wide, rate32)
-        log(f"  K-scan {group} {tuple(xyT.shape)} == plain: {ms:.3f} ms  "
-            f"plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by})")
-        entries[f"msm_scan_{group}"] = {"ms": ms, "plain_ms": plain_ms,
-                                        "bound_ms": bms, "bound_by": by}
-        del xyT, got, want
+    # K-scan at every shape the prove gave it: the A, B1 and C inputs share
+    # one (A's is taken), then H's (G1) and B2's (G2)
+    a_pts, _, b2_pts, _, h_pts = groth16._dev_points(zkey, dev)
+    w = ftorch.to_tensor(wit.values, dev)
+    p_odd = groth16.qap(ctx, zkey.domain_size, *qap_inputs(zkey, wit, dev))
+    seen = shapes["msm_scan"]
+    scans = [scan_case(cv, group, pts, scal, seen, "groth16", rate32, errs)
+             for group, pts, scal in (("g1", a_pts, w), ("g1", h_pts, p_odd),
+                                      ("g2", b2_pts, w))]
+    check({tuple(e["shape"]) for e in scans} == set(seen),
+          f"a K-scan shape of the Groth16 prove was not compared: {sorted(seen)}")
+    entries["msm_scan"] = scans
+    del p_odd
 
     # K-mm at 1024^3, bn254 Fr (each of the 12 stages of the prove)
+    check(dict(shapes["digit_mm"]) == {(1024, 1024, 1024): 12},
+          f"the Groth16 prove's K-mm shapes are not 12 x 1024^3: {shapes['digit_mm']}")
     W8, D8 = mm_inputs(dev, gen)
     nd, r, q = W8.shape
     mm = D8.shape[2]
@@ -705,34 +791,68 @@ def phase_plonk_prove(dev, tables):
         plonk.prove(zk, wit, b=b, device=dev)
         torch.cuda.synchronize()
         log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
-        out = {}
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        fused_ms, (proof, publics) = wall_ms(
-            lambda: plonk.prove(zk, wit, b=b, device=dev, out=out))
-        launches = counts()
+        with recorded_shapes() as shapes:
+            reset_counts()
+            fused_ms, (proof, publics) = wall_ms(
+                lambda: plonk.prove(zk, wit, b=b, device=dev))
+            launches = counts()
         peak = torch.cuda.max_memory_allocated()
+        # the same prove once more through the rounds function, which also
+        # hands back the polynomials behind the proof
+        proof2, publics2, out = plonk._prove_rounds(zk, wit, b, None, dev)
+        check(json.dumps([proof2, publics2]) == json.dumps([proof, publics]),
+              "the rounds function and `prove` give different PLONK proofs")
     log(f"  warm prove, {FUSED}=1: {fused_ms:.1f} ms; launches {launches}; "
         f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] == 9
           and launches["digit_mm_norm"] == 20 and launches["digit_mm"] == 0,
           "PLONK fused path: expected 9 K-scan, 20 K-mm-norm and no K-mm launches")
     with fused_ntt(False):
         plonk.prove(zk, wit, b=b, device=dev)
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        unfused_ms, got_u = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev))
-        launches_u = counts()
+        with recorded_shapes() as shapes_u:
+            reset_counts()
+            unfused_ms, got_u = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev))
+            launches_u = counts()
         peak_u = torch.cuda.max_memory_allocated()
     log(f"  warm prove, {FUSED} unset: {unfused_ms:.1f} ms; launches {launches_u}; "
         f"peak device memory {peak_u / 2**30:.2f} GiB")
+    log(f"  shapes: {shapes_json(shapes_u)}")
     check(launches_u["digit_mm"] == 20 and launches_u["digit_mm_norm"] == 0,
           "PLONK unfused path: expected 20 K-mm and no K-mm-norm launches")
     check(json.dumps(got_u) == json.dumps([proof, publics]),
           "fused and unfused PLONK proofs differ")
     log("  fused proof == unfused proof")
     check_plonk_proof(cv, zk, proof, publics, out, dev)
-    return zk, wit, b, fused_ms, unfused_ms, launches, launches_u
+    shapes["digit_mm"] = shapes_u["digit_mm"]
+    return zk, wit, b, fused_ms, unfused_ms, launches, launches_u, shapes, out["A"]
+
+
+def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32):
+    """K-scan and K-mm-norm against their plain versions at every shape the
+    counted fused PLONK prove called them with (and K-mm at the unfused
+    prove's), each with its time and bound there.  The 1024^3 stage has been
+    held and timed with the Groth16 shapes; its entry is completed there."""
+    cv = hc.BN254
+    ctx = ftorch.get_ctx(cv.fr.name)
+    seen = shapes["msm_scan"]
+    check(len(seen) == 1 and sum(seen.values()) == 9,
+          f"the PLONK prove's nine MSMs do not share one K-scan shape: {dict(seen)}")
+    M = zk.ptau[2].shape[0]
+    scal = fops.pad_to(ftorch.from_mont(ctx, pol_a.contiguous()), M)
+    scan = scan_case(cv, "g1", plonk._dev_key(zk, dev, M)["ptau"], scal, seen,
+                     "plonk", rate32, errs)
+    big = (1024, 1024, 1024)
+    norm, mm = shapes["digit_mm_norm"], shapes["digit_mm"]
+    check(dict(norm) == dict(mm) and sum(norm.values()) == 20 and norm[big] == 12,
+          f"fused and unfused PLONK NTT stage shapes differ or are not 20: {dict(norm)}")
+    norms = [mm_case(dev, gen, "digit_mm_norm", sh, n, "plonk", errs)
+             for sh, n in sorted(norm.items()) if sh != big]
+    mms = [mm_case(dev, gen, "digit_mm", sh, n, "plonk unfused", errs)
+           for sh, n in sorted(mm.items()) if sh != big]
+    return scan, norms, mms
 
 
 class RoundClock:
@@ -797,42 +917,55 @@ def main():
     phase_fixture(dev)
     phase_plonk_fixture(dev)
     log("[2^20 Groth16 prove]")
-    zkey, wit, prove_ms, launches = phase_full_prove(dev, tables)
+    zkey, wit, prove_ms, launches, shapes = phase_full_prove(dev, tables)
     log("[where the time goes]")
     phase_breakdown(dev, zkey, wit, prove_ms)
-    log("[main-path shapes and times]")
-    entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs)
+    log("[Groth16 main-path shapes and times]")
+    rate32 = imad_per_s()
+    entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32)
     del zkey, wit
     torch.cuda.empty_cache()
     log("[2^18 PLONK prove]")
-    pzk, pwit, pb, fused_ms, unfused_ms, pl, pl_u = phase_plonk_prove(dev, tables)
+    (pzk, pwit, pb, fused_ms, unfused_ms, pl, pl_u, pshapes,
+     pol_a) = phase_plonk_prove(dev, tables)
+    log("[PLONK main-path shapes and times]")
+    pscan, pnorms, pmms = phase_plonk_shapes(dev, gen, pzk, pol_a, pshapes, errs, rate32)
+    del pol_a
     log("[where the PLONK prove's time goes]")
     phase_plonk_times(dev, pzk, pwit, pb, fused_ms)
 
-    scan_g1 = entries["msm_scan_g1"]
+    # `launches` is a kernel's count in one prove: the PLONK prove with the
+    # fused NTT route, but for K-mm, which that route does not run (the
+    # Groth16 prove's).  `ms`, `plain_ms` and `bound_ms` belong to `shape`, the
+    # shape that prove gave the kernel most often.  `shapes` lists every shape
+    # the proves gave the kernel (K-field has too many), each with its own
+    # launches, error, times and bound.
+    big = (1024, 1024, 1024)
+    mm_big = dict(entries["digit_mm"], path="groth16", shape=list(big),
+                  launches=shapes["digit_mm"][big], max_abs_err=errs["digit_mm"])
+    norm_big = dict(entries["digit_mm_norm"], path="plonk", shape=list(big),
+                    launches=pshapes["digit_mm_norm"][big],
+                    max_abs_err=errs["digit_mm_norm"])
     rows = [
         ("field_ops", "snarkjs_tpu_torch/csrc/field_ops.cu",
-         "snarkjs_tpu/fields/fpal.py:449", entries["field_ops"]),
+         "snarkjs_tpu/fields/fpal.py:449",
+         dict(entries["field_ops"], shape=[16, 1 << 20]), []),
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
-         "snarkjs_tpu/curves/msm_tpu.py:213",
-         dict(scan_g1, g2=entries["msm_scan_g2"])),
+         "snarkjs_tpu/curves/msm_tpu.py:213", pscan, [pscan] + entries["msm_scan"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
-         "snarkjs_tpu/ntt/ntt_mxu.py:320", entries["digit_mm"]),
+         "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + pmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
-         "snarkjs_tpu/ntt/ntt_mxu.py:457", entries["digit_mm_norm"]),
+         "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big, [norm_big] + pnorms),
     ]
-    # `launches`: the count on the PLONK prove's path with the
-    # fused NTT route; K-mm is not on that route, so its count is the Groth16
-    # prove's.  Every path's count is kept beside it.
     kernels = []
-    for kname, src, replaces, e in rows:
-        kernels.append(dict({
-            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": pl[kname] or launches[kname], "max_abs_err": errs[kname],
-            "library_ms": None,
-            "launches_groth16": launches[kname], "launches_plonk": pl[kname],
-            "launches_plonk_unfused": pl_u[kname]}, **e))
-        check(kernels[-1]["launches"] > 0, f"{kname} was launched on no main path")
+    for kname, src, replaces, first, every in rows:
+        k = dict({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+                  "library_ms": None}, **first)
+        k.update(launches=pl[kname] or launches[kname], max_abs_err=errs[kname],
+                 launches_groth16=launches[kname], launches_plonk=pl[kname],
+                 launches_plonk_unfused=pl_u[kname], shapes=every)
+        check(k["launches"] > 0, f"{kname} was launched on no main path")
+        kernels.append(k)
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     log(f"prove_2^20_warm_ms: {prove_ms}")

@@ -305,14 +305,21 @@ def _dev_key(zk: zkey_fmt.PlonkZkey, dev, M: int) -> dict:
 
 
 def prove(zk: zkey_fmt.PlonkZkey, witness: wtns_fmt.Witness, b=None,
-          logger=None, device=None, out: dict | None = None):
+          logger=None, device=None):
     """Generate a PLONK proof: (proof JSON object, public signals).
 
     b: optional list of 12 blinding ints, b[1..11] used (tests); drawn with
     `secrets` when not given.  device: None means the card ("cuda"); raises
-    without one.  out: if a dict, receives the device tensors of the blinded
+    without one."""
+    proof, publics, _ = _prove_rounds(zk, witness, b, logger, device)
+    return proof, publics
+
+
+def _prove_rounds(zk, witness, b, logger, device):
+    """The five rounds of `prove`.  Returns (proof, publics, polys): polys
+    holds the device tensors (Montgomery coefficients) of the blinded
     polynomials A, B, C, Z, the quotient parts T1, T2, T3 and the opening
-    quotients Wxi, Wxiw (Montgomery coefficients)."""
+    quotients Wxi, Wxiw, for checks of a proof against its polynomials."""
     dev = devmod.resolve(device)
     cv = zk.curve
     fr = cv.fr
@@ -679,9 +686,8 @@ def prove(zk: zkey_fmt.PlonkZkey, witness: wtns_fmt.Witness, b=None,
 
     commitWxi = commit(Wxi_q)
     commitWxiw = commit(Wxiw_q)
-    if out is not None:
-        out.update(A=polA_b, B=polB_b, C=polC_b, Z=polZ_b, T1=T1, T2=T2, T3=T3,
-                   Wxi=Wxi_q, Wxiw=Wxiw_q)
+    polys = dict(A=polA_b, B=polB_b, C=polC_b, Z=polZ_b, T1=T1, T2=T2, T3=T3,
+                 Wxi=Wxi_q, Wxiw=Wxiw_q)
 
     proof = {
         "A": _g1_obj(commitA), "B": _g1_obj(commitB), "C": _g1_obj(commitC),
@@ -694,7 +700,7 @@ def prove(zk: zkey_fmt.PlonkZkey, witness: wtns_fmt.Witness, b=None,
         "eval_s2": str(eval_s2),
         "protocol": "plonk", "curve": cv.name,
     }
-    return proof, [str(x) for x in publics]
+    return proof, [str(x) for x in publics], polys
 
 
 def prove_files(zkey_path: str, wtns_path: str, **kw):
