@@ -5,16 +5,17 @@
 
 Phases (any failure exits non-zero before the last line):
   1. the card's name and power limit;
-  2. build csrc/*.cu with nvcc (one process per source, in parallel);
+  2. build csrc/*.cu with nvcc (one process per source, in parallel); the SASS
+     of K-mm and K-mm-norm must hold tensor-core instructions (IGMMA / IMMA);
   3. each kernel against its plain PyTorch version on the card, limb for limb:
      K-field (all four ops; bn254 Fr/Fq, bls12-381 Fq; 2^20 elements with the
      edge values and to_mont of limbs in [p, R)), K-scan (bn254 G1/G2, cw=8,
-     2^12 points), K-mm (1024 x 1024 x 1024, bn254 Fr), K-mm-norm (bn254 Fr
-     and bls12-381 Fr at 1024 x 1024 x 1024, r = 4 with m = 2^16, m = 4 with
-     r = 1024, and a shape that is no multiple of 4);
+     2^12 points), K-mm and K-mm-norm (1024 x 1024 x 1024, r = 4 with
+     m = 2^16, m = 4 with r = 1024, and a shape that is no multiple of 4;
+     K-mm-norm on bn254 Fr and bls12-381 Fr);
   4. the stored tiny bn128 fixtures proved through `prove_files`, byte-equal
      to the proofs the JAX package made, verified, a tampered public rejected:
-     Groth16, then PLONK with SNARKJS_NTT_FUSED=1;
+     Groth16, then PLONK;
   5. the full-width prove: a 2^20-domain bn128 Groth16 key (the 600,000
      constraint squaring chain of bench.py, point sections tiled from 512
      multiples of G1 and 64 of G2), launch counts set to 0 just before and
@@ -23,26 +24,31 @@ Phases (any failure exits non-zero before the last line):
      against the one assembled from the closed forms; then each kernel
      against its plain version at the shapes this prove gives it;
   6. where the warm prove's time goes (QAP and each MSM alone, one prove
-     under torch.profiler), then times (CUDA events) of each kernel, its
-     plain version and, for K-mm, one torch._int_mm on the Toeplitz-expanded
-     digit matrix;
+     under torch.profiler), warm proves paired over the two NTT routes, then
+     times (CUDA events) of each kernel, its plain version and, for K-mm, one
+     torch._int_mm on the Toeplitz-expanded digit matrix;
   7. the full-width PLONK prove: the 200,000-constraint squaring chain
      (domain n = 2^18, 4n = 2^20), its key written by `_write_plonk_zkey` on
-     the card with an SRS tiled from the 512 multiples of G1; proved with
-     SNARKJS_NTT_FUSED=1 (launch counts set to 0 just before, read just after)
-     and without; nine commitments against their closed forms, six
-     evaluations against host Horner, the quotient identity at xi on host
-     bigints, fused proof == unfused proof; then K-scan and K-mm-norm against
-     their plain versions at every shape that prove called them with (the
-     shapes are recorded during the counted prove: the scan input is rebuilt
-     from the key's SRS and the blinded polynomial A), each with its time and
-     bound;
-  8. PLONK times: warm prove fused and unfused, rounds 1-5, peak memory, one
-     prove under torch.profiler;
-  9. the kernels line, then the contract line.
+     the card with an SRS tiled from the 512 multiples of G1; launch counts
+     set to 0 just before, read just after; nine commitments against their
+     closed forms, six evaluations against host Horner, the quotient identity
+     at xi on host bigints; then K-scan and K-mm-norm against their plain
+     versions at every shape that prove called them with (the shapes are
+     recorded during the counted prove: the scan input is rebuilt from the
+     key's SRS and the blinded polynomial A), each with its time and bound;
+  8. PLONK times: warm proves paired over the two NTT routes (medians,
+     spread, peak memory; the proofs equal), rounds 1-5, one prove under
+     torch.profiler;
+  9. the NTT path: a forward and an inverse 2^20 NTT and an inverse 2^18 NTT
+     on bn254 Fr through `fused=False` (K-mm, then `_normalize_cols` in
+     PyTorch), launch counts set to 0 just before and read just after, each
+     result equal limb for limb to the default route's; then K-mm against its
+     plain version at every shape that path gave it;
+ 10. the kernels line, then the contract line.
 
-The Groth16 phases leave SNARKJS_NTT_FUSED unset (K-mm); the PLONK phases set
-it (K-mm-norm), so both NTT kernels stay on a driven path.
+Every NTT stage of the proves goes through K-mm-norm, the one route of
+`ntt_mm._mm_stage`; K-mm is driven by phase 9.  The paired timings send a
+prove's stages the other way by patching `ntt_mm._mm_stage`.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 IMAD_PER_CLK_SM = 64        # 32-bit integer multiply-add results/clk/SM, cc 9.0
 N_CONSTRAINTS = 600_000
 PLONK_CONSTRAINTS = 200_000  # + 1 public-input row: domain 2^18
-FUSED = "SNARKJS_NTT_FUSED"
+PAIRED_PROVES = 5            # warm proves per NTT route in a paired timing
 
 
 def log(msg):
@@ -139,17 +145,43 @@ def counts():
 
 
 @contextlib.contextmanager
-def fused_ntt(on: bool):
-    """Set (or unset) SNARKJS_NTT_FUSED for a block, then restore it."""
-    old = os.environ.pop(FUSED, None)
-    if on:
-        os.environ[FUSED] = "1"
+def unfused_stages():
+    """Send every NTT stage of a block through K-mm and the PyTorch
+    `_normalize_cols` (what `fused=False` asks of `ntt_mm.ntt`)."""
+    stage = ntt_mm._mm_stage
+    ntt_mm._mm_stage = lambda ctx, k, inverse, a, fused=True: stage(ctx, k, inverse, a, False)
     try:
         yield
     finally:
-        os.environ.pop(FUSED, None)
-        if old is not None:
-            os.environ[FUSED] = old
+        ntt_mm._mm_stage = stage
+
+
+def paired_proves(prove, what):
+    """Warm proves alternating the default NTT route (K-mm-norm) and the other
+    (K-mm + `_normalize_cols`), PAIRED_PROVES each in one process: medians,
+    spread and peak device memory per route.  The proofs must be equal."""
+    ms = {"fused": [], "unfused": []}
+    peak = {"fused": 0, "unfused": 0}
+    proofs = set()
+    for _ in range(PAIRED_PROVES):
+        for route, ctx in (("fused", contextlib.nullcontext()), ("unfused", unfused_stages())):
+            torch.cuda.reset_peak_memory_stats()
+            with ctx:
+                t, got = wall_ms(prove)
+            ms[route].append(t)
+            peak[route] = max(peak[route], torch.cuda.max_memory_allocated())
+            proofs.add(json.dumps(got))
+    check(len(proofs) == 1, f"{what}: the two NTT routes give different proofs")
+    out = {}
+    for route, ts in ms.items():
+        out[route] = {"median_ms": float(np.median(ts)), "min_ms": min(ts), "max_ms": max(ts),
+                      "peak_gib": peak[route] / 2**30}
+        log(f"  {what}, {route} route, {len(ts)} warm proves alternating: median "
+            f"{out[route]['median_ms']:.1f} ms, spread {min(ts):.1f} .. {max(ts):.1f} ms, "
+            f"peak device memory {out[route]['peak_gib']:.2f} GiB")
+    log(f"  {what}: unfused - fused median = "
+        f"{out['unfused']['median_ms'] - out['fused']['median_ms']:.1f} ms; proofs equal")
+    return out
 
 
 @contextlib.contextmanager
@@ -306,12 +338,18 @@ def phase_kernels_small(dev, gen, tables):
         for k, r, q, m in ((10, 1024, 1024, 1024), (2, 4, 4, 1 << 16),
                            (10, 1024, 1024, 4), (None, 70, 33, 50)):
             W8, D8 = mm_inputs(dev, gen, name, k, r, q, m)
+            cols = ntt_mm.digit_mm_plain(W8, D8)
             got = ntt_mm.digit_mm_norm(fp, W8, D8)
             torch.cuda.synchronize()
-            e = max_abs_err(got, ntt_mm.digit_mm_norm_plain(fp, W8, D8))
+            e = max_abs_err(got, ntt_mm._normalize_cols(fp, cols))
             check(e == 0, f"K-mm-norm {name} {(r, q, m)} differs from plain ({e})")
+            if name == "bn254_fr":      # K-mm does not depend on the field
+                got = ntt_mm.digit_mm(W8, D8)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, cols)
+                check(e == 0, f"K-mm {(r, q, m)} differs from plain ({e})")
         log(f"  K-mm-norm {name}: 1024^3, (4,4,2^16), (1024,1024,4), (70,33,50) "
-            "== plain, limb for limb")
+            "== plain, limb for limb" + ("; K-mm too" if name == "bn254_fr" else ""))
     return errs
 
 
@@ -352,10 +390,8 @@ def phase_plonk_fixture(dev):
     with open(os.path.join(FIXTURES, "tiny_plonk_bn128_proof.json")) as f:
         want = json.load(f)
     zk = os.path.join(FIXTURES, "tiny_plonk_bn128.zkey")
-    with fused_ntt(True):
-        proof, publics = plonk.prove_files(
-            zk, os.path.join(FIXTURES, "tiny_plonk_bn128.wtns"), b=want["b"],
-            device=dev)
+    proof, publics = plonk.prove_files(
+        zk, os.path.join(FIXTURES, "tiny_plonk_bn128.wtns"), b=want["b"], device=dev)
     check(json.dumps([proof, publics]) ==
           json.dumps([want["proof"], want["publicSignals"]]),
           "tiny PLONK fixture proof differs from the stored JAX proof")
@@ -397,9 +433,10 @@ def phase_full_prove(dev, tables):
     log(f"  warm prove: {prove_ms:.1f} ms; launches {launches}")
     log(f"  shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] > 0
-          and launches["digit_mm"] > 0 and launches["digit_mm_norm"] == 0,
-          "a kernel of the Groth16 path was not launched (or K-mm-norm was)")
-    check(launches["digit_mm"] == 12, "expected 12 K-mm launches (6 NTTs of 2^20)")
+          and launches["digit_mm_norm"] > 0 and launches["digit_mm"] == 0,
+          "a kernel of the Groth16 path was not launched (or K-mm was)")
+    check(launches["digit_mm_norm"] == 12,
+          "expected 12 K-mm-norm launches (6 NTTs of 2^20)")
 
     # closed forms of the five MSMs
     w = ftorch.to_tensor(wit.values, dev)
@@ -516,7 +553,9 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
     log("  stage ms: " + json.dumps({k: round(v, 1) for k, v in parts.items()}))
 
     profile_busy(lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev), prove_ms)
-    return parts
+    paired = paired_proves(lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev),
+                           "Groth16 2^20")
+    return parts, paired
 
 
 def scan_case(cv, group, pts, scal, seen, path, rate32, errs):
@@ -610,9 +649,11 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     entries["msm_scan"] = scans
     del p_odd
 
-    # K-mm at 1024^3, bn254 Fr (each of the 12 stages of the prove)
-    check(dict(shapes["digit_mm"]) == {(1024, 1024, 1024): 12},
-          f"the Groth16 prove's K-mm shapes are not 12 x 1024^3: {shapes['digit_mm']}")
+    # K-mm-norm's only shape in this prove is 1024^3 (12 stages); K-mm is held
+    # and timed there too, beside the library yardstick
+    check(dict(shapes["digit_mm_norm"]) == {(1024, 1024, 1024): 12},
+          f"the Groth16 prove's K-mm-norm shapes are not 12 x 1024^3: "
+          f"{shapes['digit_mm_norm']}")
     W8, D8 = mm_inputs(dev, gen)
     nd, r, q = W8.shape
     mm = D8.shape[2]
@@ -622,6 +663,8 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     check(e == 0, f"K-mm differs from plain ({e})")
     errs["digit_mm"] = e
     ms = cuda_ms(lambda: ntt_mm.digit_mm(W8, D8), 5)
+    log(f"  (nd, q, m) -> (nd, m, q) of D8 at 1024^3, inside both wrappers' times: "
+        f"{cuda_ms(lambda: ntt_mm._y_major(D8), 5):.3f} ms")
     nc = 2 * nd - 1
     toe = torch.zeros((nd, q, nc, mm), dtype=torch.int8, device=dev)
     for i in range(nd):
@@ -631,6 +674,8 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     lib = torch._int_mm(Wcat, toe).reshape(r, nc, mm).permute(1, 0, 2)
     check(max_abs_err(lib, got) == 0, "torch._int_mm yardstick differs from K-mm")
     library_ms = cuda_ms(lambda: torch._int_mm(Wcat, toe), 3)
+    check(ms < library_ms, f"K-mm ({ms:.3f} ms) is not faster than torch._int_mm "
+                           f"({library_ms:.3f} ms)")
     # the library's way to the normalised limbs: the same _int_mm, then the
     # PyTorch _normalize_cols on its columns
     fp = ctx.fp
@@ -644,7 +689,8 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     entries["digit_mm"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                            "bound_by": by, "library_ms": library_ms}
 
-    # K-mm-norm at the same 1024^3 stage (12 of the 20 stages of a PLONK prove)
+    # K-mm-norm at the same 1024^3 stage (all 12 stages of the Groth16 prove,
+    # 12 of the 20 of a PLONK prove)
     gotn = ntt_mm.digit_mm_norm(fp, W8, D8)
     plain_n_ms, wantn = wall_ms(lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
     e = max(max_abs_err(gotn, wantn), max_abs_err(gotn, lib_limbs))
@@ -786,55 +832,40 @@ def phase_plonk_prove(dev, tables):
         f"{time.perf_counter() - t:.1f} s")
     check(zk.power == 18, "the PLONK domain is not 2^18")
     b = list(range(101, 113))
-    with fused_ntt(True):
-        t = time.perf_counter()
-        plonk.prove(zk, wit, b=b, device=dev)
-        torch.cuda.synchronize()
-        log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
-        torch.cuda.reset_peak_memory_stats()
-        with recorded_shapes() as shapes:
-            reset_counts()
-            fused_ms, (proof, publics) = wall_ms(
-                lambda: plonk.prove(zk, wit, b=b, device=dev))
-            launches = counts()
-        peak = torch.cuda.max_memory_allocated()
-        # the same prove once more through the rounds function, which also
-        # hands back the polynomials behind the proof
-        proof2, publics2, out = plonk._prove_rounds(zk, wit, b, None, dev)
-        check(json.dumps([proof2, publics2]) == json.dumps([proof, publics]),
-              "the rounds function and `prove` give different PLONK proofs")
-    log(f"  warm prove, {FUSED}=1: {fused_ms:.1f} ms; launches {launches}; "
+    t = time.perf_counter()
+    plonk.prove(zk, wit, b=b, device=dev)
+    torch.cuda.synchronize()
+    log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_shapes() as shapes:
+        reset_counts()
+        prove_ms, (proof, publics) = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev))
+        launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the same prove once more through the rounds function, which also hands
+    # back the polynomials behind the proof
+    proof2, publics2, out = plonk._prove_rounds(zk, wit, b, None, dev)
+    check(json.dumps([proof2, publics2]) == json.dumps([proof, publics]),
+          "the rounds function and `prove` give different PLONK proofs")
+    log(f"  warm prove: {prove_ms:.1f} ms; launches {launches}; "
         f"peak device memory {peak / 2**30:.2f} GiB")
     log(f"  shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] == 9
           and launches["digit_mm_norm"] == 20 and launches["digit_mm"] == 0,
-          "PLONK fused path: expected 9 K-scan, 20 K-mm-norm and no K-mm launches")
-    with fused_ntt(False):
-        plonk.prove(zk, wit, b=b, device=dev)
-        torch.cuda.reset_peak_memory_stats()
-        with recorded_shapes() as shapes_u:
-            reset_counts()
-            unfused_ms, got_u = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev))
-            launches_u = counts()
-        peak_u = torch.cuda.max_memory_allocated()
-    log(f"  warm prove, {FUSED} unset: {unfused_ms:.1f} ms; launches {launches_u}; "
-        f"peak device memory {peak_u / 2**30:.2f} GiB")
-    log(f"  shapes: {shapes_json(shapes_u)}")
-    check(launches_u["digit_mm"] == 20 and launches_u["digit_mm_norm"] == 0,
-          "PLONK unfused path: expected 20 K-mm and no K-mm-norm launches")
-    check(json.dumps(got_u) == json.dumps([proof, publics]),
-          "fused and unfused PLONK proofs differ")
-    log("  fused proof == unfused proof")
+          "PLONK path: expected 9 K-scan, 20 K-mm-norm and no K-mm launches")
     check_plonk_proof(cv, zk, proof, publics, out, dev)
-    shapes["digit_mm"] = shapes_u["digit_mm"]
-    return zk, wit, b, fused_ms, unfused_ms, launches, launches_u, shapes, out["A"]
+    return zk, wit, b, prove_ms, launches, shapes, out["A"]
+
+
+STAGE_SHAPES = {(1024, 1024, 1024): 12, (256, 256, 1024): 4, (1024, 1024, 256): 4}
+BIG = (1024, 1024, 1024)
 
 
 def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32):
     """K-scan and K-mm-norm against their plain versions at every shape the
-    counted fused PLONK prove called them with (and K-mm at the unfused
-    prove's), each with its time and bound there.  The 1024^3 stage has been
-    held and timed with the Groth16 shapes; its entry is completed there."""
+    counted PLONK prove called them with, each with its time and bound there.
+    The 1024^3 stage has been held and timed with the Groth16 shapes; its
+    entry is completed there."""
     cv = hc.BN254
     ctx = ftorch.get_ctx(cv.fr.name)
     seen = shapes["msm_scan"]
@@ -844,15 +875,44 @@ def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32):
     scal = fops.pad_to(ftorch.from_mont(ctx, pol_a.contiguous()), M)
     scan = scan_case(cv, "g1", plonk._dev_key(zk, dev, M)["ptau"], scal, seen,
                      "plonk", rate32, errs)
-    big = (1024, 1024, 1024)
-    norm, mm = shapes["digit_mm_norm"], shapes["digit_mm"]
-    check(dict(norm) == dict(mm) and sum(norm.values()) == 20 and norm[big] == 12,
-          f"fused and unfused PLONK NTT stage shapes differ or are not 20: {dict(norm)}")
+    norm = shapes["digit_mm_norm"]
+    check(dict(norm) == STAGE_SHAPES,
+          f"the PLONK prove's 20 NTT stage shapes are not the expected ones: {dict(norm)}")
     norms = [mm_case(dev, gen, "digit_mm_norm", sh, n, "plonk", errs)
-             for sh, n in sorted(norm.items()) if sh != big]
-    mms = [mm_case(dev, gen, "digit_mm", sh, n, "plonk unfused", errs)
-           for sh, n in sorted(mm.items()) if sh != big]
-    return scan, norms, mms
+             for sh, n in sorted(norm.items()) if sh != BIG]
+    return scan, norms
+
+
+def phase_ntt_path(dev, gen, errs):
+    """K-mm's path: a forward and an inverse 2^20 NTT and an inverse 2^18 NTT on
+    bn254 Fr with `fused=False`, counted; each result equal limb for limb to
+    the default route's; then K-mm against its plain version at every shape
+    the path gave it but 1024^3, which the Groth16 phase held and timed."""
+    ctx = ftorch.get_ctx("bn254_fr")
+    a20 = rand_field(ctx.fp, 1 << 20, dev, gen)
+    a18 = rand_field(ctx.fp, 1 << 18, dev, gen)
+    cases = (("ntt 2^20", ntt_mm.ntt, a20), ("intt 2^20", ntt_mm.intt, a20),
+             ("intt 2^18", ntt_mm.intt, a18))
+    with recorded_shapes() as shapes:
+        reset_counts()
+        ms, got = wall_ms(lambda: [fn(ctx, a, fused=False) for _, fn, a in cases])
+        launches = counts()
+    log(f"  ntt, intt 2^20 and intt 2^18 with fused=False: {ms:.1f} ms; launches {launches}")
+    log(f"  shapes: {shapes_json(shapes)}")
+    check(launches["digit_mm"] == 6 and launches["digit_mm_norm"] == 0
+          and launches["field_ops"] > 0,
+          "NTT path: expected 6 K-mm launches, no K-mm-norm, and K-field twiddles")
+    check(dict(shapes["digit_mm"]) == {BIG: 4, (256, 256, 1024): 1, (1024, 1024, 256): 1},
+          f"the NTT path's K-mm shapes are not the expected ones: {dict(shapes['digit_mm'])}")
+    for (what, fn, a), g in zip(cases, got):
+        e = max_abs_err(g, fn(ctx, a))
+        check(e == 0, f"{what}: fused=False differs from the default route ({e})")
+        errs["digit_mm"] = max(errs["digit_mm"], e)
+    check(max_abs_err(ntt_mm.intt(ctx, got[0]), a20) == 0, "intt(ntt(a)) != a at 2^20")
+    log("  each == the default route's output limb for limb; intt(ntt(a)) == a")
+    mms = [mm_case(dev, gen, "digit_mm", sh, n, "ntt fused=False", errs)
+           for sh, n in sorted(shapes["digit_mm"].items()) if sh != BIG]
+    return launches, shapes, mms
 
 
 class RoundClock:
@@ -873,16 +933,29 @@ class RoundClock:
                 for nm, t0, t1 in zip(names, times, times[1:])}
 
 
-def phase_plonk_times(dev, zk, wit, b, fused_ms):
-    for on in (True, False):
-        with fused_ntt(on):
-            clock = RoundClock()
-            plonk.prove(zk, wit, b=b, device=dev, logger=clock)
-            torch.cuda.synchronize()
-            log(f"  rounds ms ({FUSED} {'= 1' if on else 'unset'}): "
-                + json.dumps(clock.rounds_ms(time.perf_counter())))
-    with fused_ntt(True):
-        profile_busy(lambda: plonk.prove(zk, wit, b=b, device=dev), fused_ms)
+def phase_plonk_times(dev, zk, wit, b, prove_ms):
+    paired = paired_proves(lambda: plonk.prove(zk, wit, b=b, device=dev), "PLONK 2^18")
+    clock = RoundClock()
+    plonk.prove(zk, wit, b=b, device=dev, logger=clock)
+    torch.cuda.synchronize()
+    log("  rounds ms: " + json.dumps(clock.rounds_ms(time.perf_counter())))
+    profile_busy(lambda: plonk.prove(zk, wit, b=b, device=dev), prove_ms)
+    return paired
+
+
+def sass_tensor_core_counts():
+    """IGMMA (wgmma) and IMMA (mma.sync) instructions in the SASS of the two
+    digit-matmul libraries; fails unless each holds some."""
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump") if os.sep in nvcc \
+        else "cuobjdump"
+    for src in ("digit_mm", "digit_mm_norm"):
+        sass = subprocess.run([cuobjdump, "-sass", _build.lib_path(src)],
+                              capture_output=True, text=True)
+        check(sass.returncode == 0, f"cuobjdump failed on {src}: {sass.stderr[-500:]}")
+        igmma, imma = sass.stdout.count("IGMMA"), sass.stdout.count("IMMA.")
+        log(f"  {src}: SASS holds {igmma} IGMMA and {imma} IMMA instructions")
+        check(igmma + imma > 0, f"{src} holds no tensor-core instruction")
 
 
 def main():
@@ -890,7 +963,6 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    os.environ.pop(FUSED, None)   # the Groth16 phases run the unfused NTT route
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -899,52 +971,53 @@ def main():
         f"cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
-    t = time.perf_counter()
+    t0 = time.perf_counter()
     reports = _build.build_all()
-    log(f"[build] {time.perf_counter() - t:.1f} s")
+    log(f"[build] {time.perf_counter() - t0:.1f} s")
     for src, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    sass_tensor_core_counts()
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
     tables = point_tables(hc.BN254)
-    t = time.perf_counter()
     log("[kernels vs plain]")
     errs = phase_kernels_small(dev, gen, tables)
-    log(f"[fixture proofs] ({time.perf_counter() - t:.1f} s so far)")
+    log(f"[fixture proofs] ({time.perf_counter() - t0:.1f} s so far)")
     phase_fixture(dev)
     phase_plonk_fixture(dev)
     log("[2^20 Groth16 prove]")
     zkey, wit, prove_ms, launches, shapes = phase_full_prove(dev, tables)
     log("[where the time goes]")
-    phase_breakdown(dev, zkey, wit, prove_ms)
+    _, paired_g = phase_breakdown(dev, zkey, wit, prove_ms)
     log("[Groth16 main-path shapes and times]")
     rate32 = imad_per_s()
     entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32)
     del zkey, wit
     torch.cuda.empty_cache()
-    log("[2^18 PLONK prove]")
-    (pzk, pwit, pb, fused_ms, unfused_ms, pl, pl_u, pshapes,
-     pol_a) = phase_plonk_prove(dev, tables)
+    log(f"[2^18 PLONK prove] ({time.perf_counter() - t0:.1f} s so far)")
+    pzk, pwit, pb, plonk_ms, pl, pshapes, pol_a = phase_plonk_prove(dev, tables)
     log("[PLONK main-path shapes and times]")
-    pscan, pnorms, pmms = phase_plonk_shapes(dev, gen, pzk, pol_a, pshapes, errs, rate32)
+    pscan, pnorms = phase_plonk_shapes(dev, gen, pzk, pol_a, pshapes, errs, rate32)
     del pol_a
     log("[where the PLONK prove's time goes]")
-    phase_plonk_times(dev, pzk, pwit, pb, fused_ms)
+    paired_p = phase_plonk_times(dev, pzk, pwit, pb, plonk_ms)
+    del pzk, pwit
+    torch.cuda.empty_cache()
+    log(f"[NTT path: K-mm] ({time.perf_counter() - t0:.1f} s so far)")
+    nl, nshapes, nmms = phase_ntt_path(dev, gen, errs)
 
-    # `launches` is a kernel's count in one prove: the PLONK prove with the
-    # fused NTT route, but for K-mm, which that route does not run (the
-    # Groth16 prove's).  `ms`, `plain_ms` and `bound_ms` belong to `shape`, the
-    # shape that prove gave the kernel most often.  `shapes` lists every shape
-    # the proves gave the kernel (K-field has too many), each with its own
-    # launches, error, times and bound.
-    big = (1024, 1024, 1024)
-    mm_big = dict(entries["digit_mm"], path="groth16", shape=list(big),
-                  launches=shapes["digit_mm"][big], max_abs_err=errs["digit_mm"])
-    norm_big = dict(entries["digit_mm_norm"], path="plonk", shape=list(big),
-                    launches=pshapes["digit_mm_norm"][big],
+    # `launches` is a kernel's count on a driven path: the PLONK prove, but
+    # for K-mm, which no prove runs (the NTT path's).  `ms`, `plain_ms` and
+    # `bound_ms` belong to `shape`, the shape that path gave the kernel most
+    # often.  `shapes` lists every shape the paths gave the kernel (K-field
+    # has too many), each with its own launches, error, times and bound.
+    mm_big = dict(entries["digit_mm"], path="ntt fused=False", shape=list(BIG),
+                  launches=nshapes["digit_mm"][BIG], max_abs_err=errs["digit_mm"])
+    norm_big = dict(entries["digit_mm_norm"], path="plonk", shape=list(BIG),
+                    launches=pshapes["digit_mm_norm"][BIG],
                     max_abs_err=errs["digit_mm_norm"])
     rows = [
         ("field_ops", "snarkjs_tpu_torch/csrc/field_ops.cu",
@@ -953,7 +1026,7 @@ def main():
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
          "snarkjs_tpu/curves/msm_tpu.py:213", pscan, [pscan] + entries["msm_scan"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
-         "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + pmms),
+         "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big, [norm_big] + pnorms),
     ]
@@ -961,15 +1034,16 @@ def main():
     for kname, src, replaces, first, every in rows:
         k = dict({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                   "library_ms": None}, **first)
-        k.update(launches=pl[kname] or launches[kname], max_abs_err=errs[kname],
-                 launches_groth16=launches[kname], launches_plonk=pl[kname],
-                 launches_plonk_unfused=pl_u[kname], shapes=every)
-        check(k["launches"] > 0, f"{kname} was launched on no main path")
+        k.update(launches=nl[kname] if kname == "digit_mm" else pl[kname],
+                 max_abs_err=errs[kname], launches_groth16=launches[kname],
+                 launches_plonk=pl[kname], launches_ntt_path=nl[kname], shapes=every)
+        check(k["launches"] > 0, f"{kname} was launched on no driven path")
         kernels.append(k)
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
-    log(f"prove_2^20_warm_ms: {prove_ms}")
-    log(f"plonk_prove_2^18_warm_ms: fused {fused_ms} unfused {unfused_ms}")
+    log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
+    log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
+    log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

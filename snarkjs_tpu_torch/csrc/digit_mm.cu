@@ -1,104 +1,97 @@
 // K-mm: the digit-product DFT matmul of the matmul NTT.
 //
 // Replaces snarkjs_tpu/ntt/ntt_mxu.py:_pallas_mm.  Computes
-//     cols[c][k][x] = sum_{i+j=c} sum_y W8[i][k][y] * D8[j][y][x]
-// for W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> cols (2nd-1, r, m) int32.
-// Exact in int32: |column| < r * 2^14 * nd < 2^31 (ntt_mxu.py:22-25).
+//     cols[c][k][x] = sum_{i+j=c} sum_y W8[i][k][y] * D8T[j][x][y]
+// for W8 (nd, r, q) int8 and D8T (nd, m, q) int8 (the data digits with y
+// contiguous) -> cols (2nd-1, r, m) int32.  Exact in int32:
+// |column| < r * 2^14 * nd < 2^31 (ntt_mxu.py:22-25).
 //
-// What bounds it on an H100: operations.  At the 2^20 Groth16 stage
-// (r = q = m = 1024, nd = 33) it is nd^2 * r*q*m = 1.17e12 int8 products
-// against 0.34 GB of traffic, far on the compute side of the card.  The
-// ideal engine is the int8 tensor core (wgmma / mma.sync s8); this first
-// version uses dp4a (four int8 products per instruction on the CUDA cores)
-// and so sits well below that roofline.
+// What bounds it on an H100: operations.  At the 2^20 stage (r = q = m = 1024,
+// nd = 33) it is nd^2 * r*q*m = 1.17e12 int8 products against 0.34 GB of
+// traffic, so it runs on the int8 tensor cores (wgmma, digit_mma.cuh).
 //
-// Design: one block per (64 x 64 output tile, column c), 256 threads, each
-// thread 4 x 4 outputs spaced 16 apart (coalesced stores, conflict-free
-// shared reads).  For each valid digit pair (i, c - i) the block walks y in
-// chunks of 32: it stages a 64 x 32 slab of W8[i] and a 32 x 64 slab of
-// D8[c - i] in shared memory, both packed four y-values per int, and every
-// thread runs 8 x 16 dp4a.  Edges are zero-filled, so any r, q, m works
-// (the small four-step stages have r or m down to 4).
+// Design: the columns are independent, so one block takes one 64 x 128 tile
+// and L = 3 neighbouring columns (the widest window whose 192 accumulators
+// still leave two blocks to an SM), runs the shared main loop over their digit
+// pairs and all of y with the sums in registers, and stores L int32 planes.
+// Column c has min(c+1, 2nd-1-c) pairs, so blocks differ 33:1 in work: the
+// grid is ordered from the middle columns outwards, the heavy blocks first.
+// Edges are zero-filled in shared memory, so any r, q, m works.
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "digit_mma.cuh"
+
 namespace {
 
-constexpr int TILE = 64;
-constexpr int KY = 32;          // y values per chunk
-constexpr int KG = KY / 4;      // packed ints per chunk row
-constexpr int PAD = KG + 1;
+using namespace digit_mma;
 
-__global__ void digit_mm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ D,
-                                int32_t* __restrict__ out, int nd, int r, int q, int m) {
-  __shared__ int Ws[TILE][PAD];  // [k][y/4]
-  __shared__ int Ds[TILE][PAD];  // [x][y/4]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int x0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE, c = blockIdx.z;
-  int acc[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; u++)
-#pragma unroll
-    for (int v = 0; v < 4; v++) acc[u][v] = 0;
+template <class T>
+__global__ void __launch_bounds__(THREADS)
+digit_mm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
+                int32_t* __restrict__ out, int nd, int r, int q, int m, int tiles_x, int tiles,
+                int groups, bool aligned) {
+  extern __shared__ uint8_t dynamic_smem[];
+  const uint32_t ring = ring_base<T>(dynamic_smem);
+  // blockIdx.x = rank * tiles + tile; rank 0 is the middle column group
+  const int rank = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int off = (rank + 1) >> 1;
+  const int group = (rank & 1) ? groups / 2 - off : groups / 2 + off;
+  const int c0 = group * T::L;
+  const int x0 = (tile % tiles_x) * T::TX, k0 = (tile / tiles_x) * TK;
 
-  const int ilo = c - (nd - 1) > 0 ? c - (nd - 1) : 0;
-  const int ihi = c < nd - 1 ? c : nd - 1;
-  for (int i = ilo; i <= ihi; i++) {
-    const int j = c - i;
-    const int8_t* Wi = W + (int64_t)i * r * q;
-    const int8_t* Dj = D + (int64_t)j * q * m;
-    for (int y0 = 0; y0 < q; y0 += KY) {
-      // 64 x 8 packed ints per slab, two per thread for each slab
-      for (int e = threadIdx.x; e < TILE * KG; e += blockDim.x) {
-        const int row = e / KG, g = e % KG;
-        uint32_t wv = 0, dv = 0;
+  int acc[T::L][T::ACC];
 #pragma unroll
-        for (int b = 0; b < 4; b++) {
-          const int y = y0 + g * 4 + b;
-          const int k = k0 + row, x = x0 + row;
-          uint8_t wb = (k < r && y < q) ? (uint8_t)Wi[(int64_t)k * q + y] : 0;
-          uint8_t db = (x < m && y < q) ? (uint8_t)Dj[(int64_t)y * m + x] : 0;
-          wv |= (uint32_t)wb << (8 * b);
-          dv |= (uint32_t)db << (8 * b);
-        }
-        Ws[row][g] = (int)wv;
-        Ds[row][g] = (int)dv;
+  for (int l = 0; l < T::L; l++)
+#pragma unroll
+    for (int e = 0; e < T::ACC; e++) acc[l][e] = 0;
+  accumulate<T>(acc, W, DT, nd, r, q, m, k0, x0, c0, ring, aligned);
+
+  const bool pairs = (m & 1) == 0;    // then (k, x even) is 8-byte aligned
+#pragma unroll
+  for (int l = 0; l < T::L; l++) {
+    if (c0 + l >= 2 * nd - 1) continue;
+    int32_t* plane = out + (int64_t)(c0 + l) * r * m;
+#pragma unroll
+    for (int e = 0; e < T::ACC; e += 2) {
+      const int k = k0 + acc_row(e), x = x0 + acc_col(e);
+      if (k >= r || x >= m) continue;
+      int32_t* dst = plane + (int64_t)k * m + x;
+      if (pairs) {
+        *reinterpret_cast<int2*>(dst) = make_int2(acc[l][e], acc[l][e + 1]);
+      } else {
+        dst[0] = acc[l][e];
+        if (x + 1 < m) dst[1] = acc[l][e + 1];
       }
-      __syncthreads();
-#pragma unroll
-      for (int g = 0; g < KG; g++) {
-        int a[4], b[4];
-#pragma unroll
-        for (int u = 0; u < 4; u++) a[u] = Ws[ty + 16 * u][g];
-#pragma unroll
-        for (int v = 0; v < 4; v++) b[v] = Ds[tx + 16 * v][g];
-#pragma unroll
-        for (int u = 0; u < 4; u++)
-#pragma unroll
-          for (int v = 0; v < 4; v++) acc[u][v] = __dp4a(a[u], b[v], acc[u][v]);
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < 4; u++) {
-    const int k = k0 + ty + 16 * u;
-    if (k >= r) continue;
-#pragma unroll
-    for (int v = 0; v < 4; v++) {
-      const int x = x0 + tx + 16 * v;
-      if (x < m) out[((int64_t)c * r + k) * m + x] = acc[u][v];
     }
   }
 }
 
+template <class T>
+int launch(const int8_t* W, const int8_t* DT, int32_t* out, int nd, int r, int q, int m,
+           cudaStream_t stream) {
+  const int tiles_x = (m + T::TX - 1) / T::TX;
+  const int64_t tiles = (int64_t)tiles_x * ((r + TK - 1) / TK);
+  const int groups = (2 * nd - 1 + T::L - 1) / T::L;
+  if (tiles * groups > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const bool aligned = q % 16 == 0 && ((reinterpret_cast<uintptr_t>(W) |
+                                        reinterpret_cast<uintptr_t>(DT)) & 15) == 0;
+  cudaError_t err = cudaFuncSetAttribute(digit_mm_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  digit_mm_kernel<T><<<(unsigned)(tiles * groups), THREADS, T::SMEM, stream>>>(
+      W, DT, out, nd, r, q, m, tiles_x, (int)tiles, groups, aligned);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int snark_digit_mm(const void* W, const void* D, void* out, int nd, int r, int q,
+// W: (nd, r, q) int8; DT: (nd, m, q) int8; out: (2nd-1, r, m) int32.
+extern "C" int snark_digit_mm(const void* W, const void* DT, void* out, int nd, int r, int q,
                               int m, void* stream) {
-  dim3 grid((m + TILE - 1) / TILE, (r + TILE - 1) / TILE, 2 * nd - 1);
-  digit_mm_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(W), static_cast<const int8_t*>(D), static_cast<int32_t*>(out),
-      nd, r, q, m);
-  return (int)cudaGetLastError();
+  if (nd <= 0 || r <= 0 || q <= 0 || m <= 0 || (reinterpret_cast<uintptr_t>(out) & 7))
+    return (int)cudaErrorInvalidValue;
+  return launch<Tile<128, 3, 2>>(static_cast<const int8_t*>(W), static_cast<const int8_t*>(DT),
+                                 static_cast<int32_t*>(out), nd, r, q, m,
+                                 static_cast<cudaStream_t>(stream));
 }

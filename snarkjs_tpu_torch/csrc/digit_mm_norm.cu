@@ -2,42 +2,41 @@
 // normalisation fused as its epilogue.
 //
 // Replaces snarkjs_tpu/ntt/ntt_mxu.py:_pallas_mm_norm.  For W8 (nd, r, q) int8
-// and D8 (nd, q, m) int8 it computes the 2nd-1 product columns
-//     cols[c][k][x] = sum_{i+j=c} sum_y W8[i][k][y] * D8[j][y][x]
-// and, without writing them anywhere, reduces sum_c cols[c]*256^c mod p to
-// (nl, r, m) canonical 16-bit limbs in [0, p): signed carry to u8 digits,
-// balanced recode of the high digits, fold with the 2^(8(n8+h)) mod p table,
-// compensation constant, Barrett, two conditional subtracts (the steps of
-// ntt_mm._normalize_cols, in int32).  The per-field tables come in a struct
-// passed as a kernel argument, so they sit in the constant bank.
+// and D8T (nd, m, q) int8 (the data digits with y contiguous) it computes the
+// 2nd-1 product columns
+//     cols[c][k][x] = sum_{i+j=c} sum_y W8[i][k][y] * D8T[j][x][y]
+// and, without writing them anywhere as int32, reduces sum_c cols[c]*256^c
+// mod p to (nl, r, m) canonical 16-bit limbs in [0, p): signed carry to u8
+// digits, balanced recode of the high digits, fold with the 2^(8(n8+h)) mod p
+// table, compensation constant, Barrett, two conditional subtracts (the steps
+// of ntt_mm._normalize_cols, in int32).  The per-field tables come in a
+// struct passed as a kernel argument, so they sit in the constant bank.
 //
 // What bounds it on an H100: operations, the same nd^2 * r*q*m int8 products
-// as K-mm; the traffic is W8 + D8 in and nl*r*m words out, the column planes
-// no longer move.  Like K-mm this version runs dp4a on the CUDA cores, well
-// below the int8 tensor-core roofline.
+// as K-mm, on the int8 tensor cores (wgmma, digit_mma.cuh); the traffic is
+// W8 + D8T in and nl*r*m words out.
 //
 // Design: a TPU kernel kept the (2nd-1, kt, mt) columns in scratch across a
-// sequential grid axis; blocks here run in no order, so one thread owns one
-// output (k, x) and all 2nd-1 = 65 of its columns as registers: the i, j
-// loops are fully unrolled and acc[i + j] never becomes a local-memory array.
-// A block is 8 rows x 32 columns of outputs (one warp per row: the W8 value
-// is a shared-memory broadcast, the D8 values are consecutive words).  Per
-// chunk of 32 y-values the block stages all nd digit planes of its W8 rows
-// and D8 columns in shared memory, four y-values packed per int, and every
-// thread runs nd^2 dp4a per packed int.  Edges are zero-filled, so any r, q,
-// m works (the four-step stages go down to r or m = 4); rows of 4 bytes are
-// loaded as words where q or m is a multiple of 4.
+// sequential grid axis.  Here a loop inside the block takes that axis: a
+// block owns a 64 x TX tile and walks its columns upwards, L at a time, with
+// the shared main loop.  The carry pass of the normalisation runs over the
+// columns in that same order, so each finished column is retired at once:
+// its low byte is the digit, the rest is added to the next column's
+// accumulator (the carry needs no registers of its own).  The digits, one
+// byte per output and column, go to a scratch of the block in device memory
+// that only the writing thread reads back: 68 bytes an output in place of 260
+// for the int32 columns, written once and read once.  When the last column is
+// retired, every thread reduces its outputs from those bytes (steps 2-5).
+// Blocks walk the tiles persistently, so the scratch is one slot per block.
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <cstring>
 
+#include "digit_mma.cuh"
+
 namespace {
 
-constexpr int TK = 8;           // output rows per block (one warp each)
-constexpr int TX = 32;          // output columns per block
-constexpr int KY = 32;          // y values per chunk
-constexpr int KG = KY / 4;      // packed ints per chunk
-
+using namespace digit_mma;
 template <int N8>
 struct NormConsts {
   static constexpr int ND = N8 + 1;        // signed digits per element
@@ -52,21 +51,17 @@ struct NormConsts {
   uint32_t mu;                             // floor(2^(32+SHIFT) / p)
 };
 
+// Steps 2-5 on the NCAP u8 digits that the carry pass (step 1) left: digit c
+// of this output is digs[c * stride].
 template <int N8>
-__device__ __forceinline__ void normalize_store(const int (&acc)[2 * N8 + 1],
+__device__ __forceinline__ void normalize_store(const uint8_t* digs_at, int64_t stride,
                                                 const NormConsts<N8>& K, int32_t* out,
                                                 int64_t plane) {
   using C = NormConsts<N8>;
-  constexpr int NC = C::NC, NCAP = C::NCAP, NH = C::NH, NL = C::NL;
-  // 1) signed carry-normalise to u8 digits
+  constexpr int NCAP = C::NCAP, NH = C::NH, NL = C::NL;
   int digs[NCAP];
-  int carry = 0;
 #pragma unroll
-  for (int i = 0; i < NCAP; i++) {
-    const int v = (i < NC ? acc[i] : 0) + carry;
-    digs[i] = v & 0xFF;
-    carry = v >> 8;
-  }
+  for (int i = 0; i < NCAP; i++) digs[i] = digs_at[i * stride];
   // 2) balanced-recode the high digits, fold with the table
   int hs[NH + 1];
   int hc = 0;
@@ -144,117 +139,127 @@ __device__ __forceinline__ void normalize_store(const int (&acc)[2 * N8 + 1],
   for (int l = 0; l < NL; l++) out[(int64_t)l * plane] = outv[l];
 }
 
-template <int N8>
-__global__ void __launch_bounds__(TK * TX)
-digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ D,
-                     int32_t* __restrict__ out, int r, int q, int m,
-                     const NormConsts<N8> K) {
-  constexpr int ND = N8 + 1;
-  __shared__ int Ws[ND][TK][KG];              // [i][k][y/4]
-  __shared__ __align__(16) int Ds[ND][KG][TX];  // [j][y/4][x]
-  const int tx = threadIdx.x & (TX - 1), tk = threadIdx.x / TX;
-  const int x0 = blockIdx.x * TX, k0 = blockIdx.y * TK;
-  const bool w_words = (q & 3) == 0, d_words = (m & 3) == 0;
+// Scratch of one block: digit c of accumulator e of thread t is byte e % 4 of
+// word (c * (ACC / 4) + e / 4) * THREADS + t.
+template <class T>
+struct Scratch {
+  static constexpr int WORDS = NormConsts<32>::NCAP * (T::ACC / 4) * THREADS;
+};
 
-  int acc[2 * ND - 1];
-#pragma unroll
-  for (int c = 0; c < 2 * ND - 1; c++) acc[c] = 0;
+template <int N8, class T>
+__global__ void __launch_bounds__(THREADS)
+digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
+                     int32_t* __restrict__ out, uint32_t* scratch, int r, int q, int m,
+                     int tiles_x, int tiles, bool aligned, const NormConsts<N8> K) {
+  using C = NormConsts<N8>;
+  constexpr int L = T::L, ACC = T::ACC;
+  extern __shared__ uint8_t dynamic_smem[];
+  const uint32_t ring = ring_base<T>(dynamic_smem);
+  uint32_t* mine = scratch + (int64_t)blockIdx.x * Scratch<T>::WORDS + threadIdx.x;
 
-  for (int y0 = 0; y0 < q; y0 += KY) {
-    // W8 rows of this block: ND x TK x KG packed ints, y contiguous in memory
-    for (int e = threadIdx.x; e < ND * TK * KG; e += TK * TX) {
-      const int g = e % KG, row = (e / KG) % TK, i = e / (KG * TK);
-      const int k = k0 + row, y = y0 + 4 * g;
-      uint32_t wv = 0;
-      if (k < r && y < q) {
-        const int8_t* src = W + ((int64_t)i * r + k) * q + y;
-        if (w_words) {
-          wv = *reinterpret_cast<const uint32_t*>(src);
-        } else {
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int x0 = (tile % tiles_x) * T::TX, k0 = (tile / tiles_x) * TK;
+    int acc[L][ACC];
 #pragma unroll
-          for (int b = 0; b < 4; b++)
-            if (y + b < q) wv |= (uint32_t)(uint8_t)src[b] << (8 * b);
-        }
-      }
-      Ws[i][row][g] = (int)wv;
-    }
-    // D8 columns of this block: ND x KG x TX packed ints, x contiguous in memory
-    if (d_words) {
-      // four rows of four x-values each, transposed in registers
-      for (int e = threadIdx.x; e < ND * KG * (TX / 4); e += TK * TX) {
-        const int x4 = e % (TX / 4), g = (e / (TX / 4)) % KG, j = e / ((TX / 4) * KG);
-        const int x = x0 + 4 * x4, y = y0 + 4 * g;
-        uint32_t a[4] = {0, 0, 0, 0};
-        if (x < m) {
+    for (int l = 0; l < L; l++)
 #pragma unroll
-          for (int b = 0; b < 4; b++)
-            if (y + b < q)
-              a[b] = *reinterpret_cast<const uint32_t*>(D + ((int64_t)j * q + y + b) * m + x);
-        }
-        const uint32_t lo01 = __byte_perm(a[0], a[1], 0x5140);
-        const uint32_t lo23 = __byte_perm(a[2], a[3], 0x5140);
-        const uint32_t hi01 = __byte_perm(a[0], a[1], 0x7362);
-        const uint32_t hi23 = __byte_perm(a[2], a[3], 0x7362);
-        int4 o;
-        o.x = (int)__byte_perm(lo01, lo23, 0x5410);
-        o.y = (int)__byte_perm(lo01, lo23, 0x7632);
-        o.z = (int)__byte_perm(hi01, hi23, 0x5410);
-        o.w = (int)__byte_perm(hi01, hi23, 0x7632);
-        *reinterpret_cast<int4*>(&Ds[j][g][4 * x4]) = o;
-      }
-    } else {
-      for (int e = threadIdx.x; e < ND * KG * TX; e += TK * TX) {
-        const int xx = e % TX, g = (e / TX) % KG, j = e / (TX * KG);
-        const int x = x0 + xx, y = y0 + 4 * g;
-        uint32_t dv = 0;
-        if (x < m) {
+      for (int e = 0; e < ACC; e++) acc[l][e] = 0;
+
+    for (int c0 = 0; c0 < C::NCAP; c0 += L) {
+      // acc[0] comes in holding the carry out of column c0 - 1
+      accumulate<T>(acc, W, DT, C::ND, r, q, m, k0, x0, c0, ring, aligned);
+      // 1) retire the columns in order: digit = low byte, the rest carries on
 #pragma unroll
-          for (int b = 0; b < 4; b++)
-            if (y + b < q)
-              dv |= (uint32_t)(uint8_t)D[((int64_t)j * q + y + b) * m + x] << (8 * b);
+      for (int l = 0; l < L; l++) {
+        const int c = c0 + l;
+        const int nxt = l + 1 < L ? l + 1 : 0;
+#pragma unroll
+        for (int e4 = 0; e4 < ACC / 4; e4++) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int b = 0; b < 4; b++) {
+            const int e = 4 * e4 + b;
+            const int v = acc[l][e];
+            word |= (uint32_t)(v & 0xFF) << (8 * b);
+            if (l > 0) acc[l][e] = 0;
+            if (l + 1 < L) acc[nxt][e] += v >> 8;
+            else acc[0][e] = v >> 8;
+          }
+          if (c < C::NCAP) mine[(c * (ACC / 4) + e4) * THREADS] = word;
         }
-        Ds[j][g][xx] = (int)dv;
       }
     }
-    __syncthreads();
+    // 2-5) every output of this thread from its digits
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(mine);
 #pragma unroll 1
-    for (int g = 0; g < KG; g++) {
-      int d[ND];
-#pragma unroll
-      for (int j = 0; j < ND; j++) d[j] = Ds[j][g][tx];
-#pragma unroll
-      for (int i = 0; i < ND; i++) {
-        const int w = Ws[i][tk][g];
-#pragma unroll
-        for (int j = 0; j < ND; j++) acc[i + j] = __dp4a(w, d[j], acc[i + j]);
-      }
+    for (int e = 0; e < ACC; e++) {
+      const int k = k0 + acc_row(e), x = x0 + acc_col(e);
+      if (k < r && x < m)
+        normalize_store<N8>(bytes + (e >> 2) * THREADS * 4 + (e & 3), (ACC / 4) * THREADS * 4, K,
+                            out + (int64_t)k * m + x, (int64_t)r * m);
     }
-    __syncthreads();
   }
+}
 
-  const int k = k0 + tk, x = x0 + tx;
-  if (k < r && x < m)
-    normalize_store<N8>(acc, K, out + (int64_t)k * m + x, (int64_t)r * m);
+// Blocks of one launch: one per tile, at most two per SM (two rings fit one
+// SM's shared memory); they walk the tiles.
+template <class T>
+int norm_blocks(int r, int m) {
+  const int64_t tiles = (int64_t)((m + T::TX - 1) / T::TX) * ((r + TK - 1) / TK);
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
+    return 0;
+  const int64_t resident = (int64_t)sms * 2;
+  return (int)(tiles < resident ? tiles : resident);
+}
+
+template <class T>
+int launch(const int8_t* W, const int8_t* DT, int32_t* out, void* scratch, long long scratch_bytes,
+           int r, int q, int m, const NormConsts<32>& K, cudaStream_t stream) {
+  const int blocks = norm_blocks<T>(r, m);
+  if (blocks <= 0 || scratch_bytes < (long long)blocks * Scratch<T>::WORDS * 4 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 3))
+    return (int)cudaErrorInvalidValue;
+  const int tiles_x = (m + T::TX - 1) / T::TX;
+  const int64_t tiles = (int64_t)tiles_x * ((r + TK - 1) / TK);
+  if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const bool aligned = q % 16 == 0 && ((reinterpret_cast<uintptr_t>(W) |
+                                        reinterpret_cast<uintptr_t>(DT)) & 15) == 0;
+  cudaError_t err = cudaFuncSetAttribute(digit_mm_norm_kernel<32, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  digit_mm_norm_kernel<32, T><<<blocks, THREADS, T::SMEM, stream>>>(
+      W, DT, out, static_cast<uint32_t*>(scratch), r, q, m, tiles_x, (int)tiles, aligned, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// 64 x 64 tiles, so that the 1024 x 1024 outputs of a 2^20 stage make 256
+// blocks, two to an SM; six live columns, the most the registers hold.
+using NormTile = Tile<64, 6, 2>;
+
+extern "C" long long snark_digit_mm_norm_scratch_bytes(int r, int m) {
+  return (long long)norm_blocks<NormTile>(r, m) * Scratch<NormTile>::WORDS * 4;
+}
+
+// W: (nd, r, q) int8; DT: (nd, m, q) int8; out: (nl, r, m) int32; scratch:
+// snark_digit_mm_norm_scratch_bytes(r, m) bytes, aligned to 4.
 // consts: a NormConsts<32> image (F bytes padded to a multiple of 4, then the
 // p limbs, the compensation limbs and mu as 32-bit words), built by the caller
 // for its field.  Only n8 = 32 (nd = 33: both Fr fields) is instantiated.
-extern "C" int snark_digit_mm_norm(const void* W, const void* D, void* out, int nd, int r, int q,
-                                   int m, const void* consts, int consts_bytes, void* stream) {
+extern "C" int snark_digit_mm_norm(const void* W, const void* DT, void* out, void* scratch,
+                                   long long scratch_bytes, int nd, int r, int q, int m,
+                                   const void* consts, int consts_bytes, void* stream) {
   using C = NormConsts<32>;
   if (nd != C::ND || consts_bytes != (int)sizeof(C) || r <= 0 || q <= 0 || m <= 0)
     return (int)cudaErrorInvalidValue;
   C K;
   std::memcpy(&K, consts, sizeof(C));
-  dim3 grid((m + TX - 1) / TX, (r + TK - 1) / TK);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  digit_mm_norm_kernel<32><<<grid, TK * TX, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(W), static_cast<const int8_t*>(D), static_cast<int32_t*>(out),
-      r, q, m, K);
-  return (int)cudaGetLastError();
+  return launch<NormTile>(static_cast<const int8_t*>(W), static_cast<const int8_t*>(DT),
+                          static_cast<int32_t*>(out), scratch, scratch_bytes, r, q, m, K,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int snark_digit_mm_norm_consts_bytes() { return (int)sizeof(NormConsts<32>); }

@@ -8,7 +8,7 @@
   Groth16 coset shift.
 
 Layout (NL, n) limb-major int32.  On the card, transforms of 2^12 and up go
-to the digit-matmul NTT (`ntt_mm`, kernel K-mm), as the JAX package routes
+to the digit-matmul NTT (`ntt_mm`, kernel K-mm-norm), as the JAX package routes
 them to its MXU NTT on the TPU; smaller ones run the butterflies below, whose
 field ops are kernel K-field.
 """

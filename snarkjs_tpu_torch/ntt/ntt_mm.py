@@ -3,30 +3,36 @@
 A size-2^k NTT is split four-step style into DFT-matrix products of size
 <= 1024 (`_ntt_axis1`).  Field elements enter each product as balanced
 signed 8-bit digits, so an r x r product over Fp becomes nd x nd int8
-digit-pair products accumulated into 2*nd - 1 int32 columns (`digit_mm`,
-kernel K-mm, csrc/digit_mm.cu), then normalized back to canonical 16-bit
-limbs (`_normalize_cols`: carry, high-digit fold, Barrett).  The DFT
+digit-pair products accumulated into 2*nd - 1 int32 columns, then normalized
+back to canonical 16-bit limbs (`_normalize_cols`: the carry pass
+`_carry_digits`, then `_reduce_digits`: high-digit fold, Barrett).  The DFT
 matrices hold plain residues; data stays in Montgomery form because
 sum w*(xR) = (sum w*x)*R.
 
-`digit_mm` replaces ntt_mxu._pallas_mm.  Its plain version is the same sum
-as exact matmuls: int64 on the CPU, float64 on the card (every column is
-below 2^31 < 2^53, and torch has no general integer GEMM on CUDA).
-`LAUNCHES` counts K-mm launches.
+`digit_mm_norm` replaces ntt_mxu._pallas_mm_norm: the product with the
+normalisation as the kernel's epilogue (kernel K-mm-norm,
+csrc/digit_mm_norm.cu), so the columns never reach device memory as int32.
+Its plain version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`;
+`NORM_LAUNCHES` counts its launches.  It is the one route of every stage
+(`_mm_stage`).
 
-`digit_mm_norm` replaces ntt_mxu._pallas_mm_norm: the same product with
-`_normalize_cols` as the kernel's epilogue (kernel K-mm-norm,
-csrc/digit_mm_norm.cu), so the columns never reach device memory.  Its plain
-version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`; `NORM_LAUNCHES`
-counts its launches.  `_mm_stage` takes it when SNARKJS_NTT_FUSED=1, the
-switch of the JAX package.
+`digit_mm` replaces ntt_mxu._pallas_mm: the columns alone (kernel K-mm,
+csrc/digit_mm.cu).  Its plain version is the same sum as exact matmuls:
+int64 on the CPU, float64 on the card (every column is below 2^31 < 2^53,
+and torch has no general integer GEMM on CUDA).  `LAUNCHES` counts K-mm
+launches.  `ntt(ctx, a, fused=False)` and `intt(ctx, a, fused=False)` run
+the stages as K-mm followed by `_normalize_cols` in PyTorch; the provers
+never ask for that.
+
+Both kernels share one tensor-core main loop (csrc/digit_mma.cuh), which
+wants the summed index y contiguous in both operands: W8 (nd, r, q) has it,
+the data digits are handed over as (nd, m, q) (`_y_major`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import os
 
 import numpy as np
 import torch
@@ -167,26 +173,44 @@ def _to_digits(fp: FieldParams, a):
     return torch.stack(ds).to(torch.int8)
 
 
+def _y_major(D8):
+    """Data digits (nd, q, m) -> (nd, m, q) contiguous: y, the index the
+    product sums over, innermost, as the kernels' main loop reads it."""
+    return D8.transpose(1, 2).contiguous()
+
+
+def _carry_digits(cols):
+    """(ncols, ...) int32 product columns -> (ncols + 3, ...) uint8 digits of
+    sum_c cols[c]*256^c >= 0: the signed carry pass, in increasing c."""
+    cols = cols.to(torch.int64)
+    ncols = cols.shape[0]
+    digs = []
+    c = torch.zeros_like(cols[0])
+    for i in range(ncols + 3):
+        v = (cols[i] + c) if i < ncols else c
+        digs.append(v & 0xFF)
+        c = v >> 8
+    return torch.stack(digs).to(torch.uint8)
+
+
 def _normalize_cols(fp: FieldParams, cols):
     """(ncols, ...) int32 product columns -> (nl, ...) int32 limbs in [0, p).
 
     cols represent sum_c cols[c]*256^c >= 0."""
-    cols = cols.to(torch.int64)
-    ncols = cols.shape[0]
+    return _reduce_digits(fp, _carry_digits(cols))
+
+
+def _reduce_digits(fp: FieldParams, digs):
+    """(ncols + 3, ...) uint8 digits of a value >= 0 -> (nl, ...) int32 limbs
+    of it mod p."""
+    digs = digs.to(torch.int64)
+    ncols = digs.shape[0] - 3
     nl, ndig = fp.nl, fp.n8
     nh, F = _fold_tables(fp.name, ncols)
-    ncap = ncols + 3
-    # 1) signed carry-normalize to u8 digits
-    digs = []
-    c = torch.zeros_like(cols[0])
-    for i in range(ncap):
-        v = (cols[i] + c) if i < ncols else c
-        digs.append(v & 0xFF)
-        c = v >> 8
     lo, hi = digs[:ndig], digs[ndig:]
     # 2) balanced-recode the high digits, fold with the 2^(8(n8+h)) table
     hs = []
-    hc = torch.zeros_like(cols[0])
+    hc = torch.zeros_like(digs[0])
     for d in range(nh):
         v = hi[d] + hc
         mneg = (v >= 128).to(torch.int64)
@@ -194,12 +218,12 @@ def _normalize_cols(fp: FieldParams, cols):
         hc = mneg
     hs.append(hc)
     hi8 = torch.stack(hs)
-    Ft = torch.as_tensor(F.T.astype(np.int64), device=cols.device)
+    Ft = torch.as_tensor(F.T.astype(np.int64), device=digs.device)
     fold = _exact_matmul(Ft, hi8.reshape(nh + 1, -1)).reshape(
-        (ndig + 1,) + cols.shape[1:])
+        (ndig + 1,) + digs.shape[1:])
     # 3) 16-bit limbs plus the compensation constant, signed carries
     shift, mu, p_limbs, c_limbs = _barrett_consts(fp.name, nh)
-    c = torch.zeros_like(cols[0])
+    c = torch.zeros_like(digs[0])
     limbs = []
     for i in range(nl + 1):
         d0 = lo[2 * i] if 2 * i < ndig else 0
@@ -272,24 +296,30 @@ def _lib():
     return lib
 
 
+def _check_operands(what: str, W8, D8):
+    nd, r, q = W8.shape
+    if (W8.dtype != torch.int8 or D8.dtype != torch.int8
+            or W8.device != D8.device or D8.shape[:2] != (nd, q)):
+        raise ValueError(f"{what} takes int8 W8 (nd, r, q) and D8 (nd, q, m) "
+                         "on one device")
+
+
 def digit_mm(W8, D8):
     """W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> (2nd-1, r, m) int32.
 
     CUDA tensors launch K-mm; CPU tensors take `digit_mm_plain`."""
     if not ftorch.use_kernel(D8):
         return digit_mm_plain(W8, D8)
+    _check_operands("K-mm", W8, D8)
     nd, r, q = W8.shape
-    if (W8.dtype != torch.int8 or D8.dtype != torch.int8
-            or W8.device != D8.device or D8.shape[:2] != (nd, q)):
-        raise ValueError("K-mm takes int8 W8 (nd, r, q) and D8 (nd, q, m) "
-                         "on one device")
-    W8, D8 = W8.contiguous(), D8.contiguous()
     m = D8.shape[2]
+    W8, DT = W8.contiguous(), _y_major(D8)
     out = torch.empty((2 * nd - 1, r, m), dtype=torch.int32, device=D8.device)
-    err = _lib().snark_digit_mm(W8.data_ptr(), D8.data_ptr(), out.data_ptr(),
-                                nd, r, q, m, _build.stream_ptr(D8.device))
-    _build.check(err, "K-mm")
-    LAUNCHES[0] += 1
+    if out.numel():
+        err = _lib().snark_digit_mm(W8.data_ptr(), DT.data_ptr(), out.data_ptr(),
+                                    nd, r, q, m, _build.stream_ptr(D8.device))
+        _build.check(err, "K-mm")
+        LAUNCHES[0] += 1
     return out
 
 
@@ -320,8 +350,11 @@ def _norm_consts(field_name: str) -> bytes:
 def _norm_lib():
     lib = _build.library("digit_mm_norm")
     lib.snark_digit_mm_norm.restype = ctypes.c_int
-    lib.snark_digit_mm_norm.argtypes = [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 4 + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+    lib.snark_digit_mm_norm.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_longlong] + [ctypes.c_int] * 4 \
+        + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+    lib.snark_digit_mm_norm_scratch_bytes.restype = ctypes.c_longlong
+    lib.snark_digit_mm_norm_scratch_bytes.argtypes = [ctypes.c_int] * 2
     lib.snark_digit_mm_norm_consts_bytes.restype = ctypes.c_int
     lib.snark_digit_mm_norm_consts_bytes.argtypes = []
     return lib
@@ -333,26 +366,26 @@ def digit_mm_norm(fp: FieldParams, W8, D8):
     CUDA tensors launch K-mm-norm; CPU tensors take `digit_mm_norm_plain`."""
     if not ftorch.use_kernel(D8):
         return digit_mm_norm_plain(fp, W8, D8)
+    _check_operands("K-mm-norm", W8, D8)
     nd, r, q = W8.shape
-    if (W8.dtype != torch.int8 or D8.dtype != torch.int8
-            or W8.device != D8.device or D8.shape[:2] != (nd, q)):
-        raise ValueError("K-mm-norm takes int8 W8 (nd, r, q) and D8 (nd, q, m) "
-                         "on one device")
     if nd != _nd(fp) or fp.n8 != 32:
         raise ValueError("K-mm-norm is built for 32-byte fields (nd = 33)")
-    # the kernel loads rows as 32-bit words where q or m is a multiple of 4
-    W8, D8 = (t.contiguous() if t.data_ptr() % 4 == 0 else t.clone(
-        memory_format=torch.contiguous_format) for t in (W8, D8))
     m = D8.shape[2]
+    W8, DT = W8.contiguous(), _y_major(D8)
     consts = _norm_consts(fp.name)
     lib = _norm_lib()
     if lib.snark_digit_mm_norm_consts_bytes() != len(consts):
         raise RuntimeError("K-mm-norm: constants layout differs from the kernel's")
     out = torch.empty((fp.nl, r, m), dtype=ftorch.DTYPE, device=D8.device)
     if out.numel():
+        # the retired digits of each resident block's tile: one byte per
+        # output and column, written and read back by the same thread
+        nbytes = lib.snark_digit_mm_norm_scratch_bytes(r, m)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=D8.device)
         err = lib.snark_digit_mm_norm(
-            W8.data_ptr(), D8.data_ptr(), out.data_ptr(), nd, r, q, m, consts,
-            len(consts), _build.stream_ptr(D8.device))
+            W8.data_ptr(), DT.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            nbytes, nd, r, q, m, consts, len(consts),
+            _build.stream_ptr(D8.device))
         _build.check(err, "K-mm-norm")
         NORM_LAUNCHES[0] += 1
     return out
@@ -365,28 +398,29 @@ def _w_matrix_on(field_name: str, k: int, inverse: bool, device: str):
     return torch.from_numpy(_w_matrix_digits(field_name, k, inverse)).to(device)
 
 
-def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, a):
-    """Direct DFT matmul along axis 1: a (nl, r, m) -> (nl, r, m)."""
+def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, a, fused: bool = True):
+    """Direct DFT matmul along axis 1: a (nl, r, m) -> (nl, r, m), through
+    K-mm-norm; with fused=False through K-mm and `_normalize_cols`."""
     fp = ctx.fp
     W8 = _w_matrix_on(fp.name, k, inverse, str(a.device))
     D8 = _to_digits(fp, a)
-    if os.environ.get("SNARKJS_NTT_FUSED") == "1":
+    if fused:
         return digit_mm_norm(fp, W8, D8)
     return _normalize_cols(fp, digit_mm(W8, D8))
 
 
-def _ntt_axis1(ctx: FieldCtx, a, inverse: bool):
+def _ntt_axis1(ctx: FieldCtx, a, inverse: bool, fused: bool = True):
     """NTT along axis 1 of a (nl, sz, bt); returns the same shape."""
     nl, sz, bt = a.shape
     k = sz.bit_length() - 1
     if k == 0:
         return a
     if k <= MAX_LOG_R:
-        return _mm_stage(ctx, k, inverse, a)
+        return _mm_stage(ctx, k, inverse, a, fused)
     k1 = MAX_LOG_R
     n1, n2 = 1 << k1, 1 << (k - k1)
     # stage A: NTT over j2 for each (j1, bt)
-    y = _ntt_axis1(ctx, a.reshape(nl, n2, n1 * bt), inverse)
+    y = _ntt_axis1(ctx, a.reshape(nl, n2, n1 * bt), inverse, fused)
     y = y.reshape(nl, n2, n1, bt)
     # twiddle w^(j1*k2), built on device from two factored ladders
     s, A, B = _twiddle_parts(ctx.fp.name, k, k1, inverse)
@@ -397,24 +431,24 @@ def _ntt_axis1(ctx: FieldCtx, a, inverse: bool):
     y = ftorch.mont_mul(ctx, y, tw[:, :, :, None])
     # stage B: NTT over j1 for each (k2, bt)
     y = y.permute(0, 2, 1, 3).reshape(nl, n1, n2 * bt)
-    z = _ntt_axis1(ctx, y, inverse)
+    z = _ntt_axis1(ctx, y, inverse, fused)
     return z.reshape(nl, n1 * n2, bt)
 
 
-def ntt(ctx: FieldCtx, a):
+def ntt(ctx: FieldCtx, a, fused: bool = True):
     """Forward NTT, natural order, Montgomery form (ntt.ntt's contract)."""
     n = a.shape[-1]
     k = n.bit_length() - 1
     assert 1 << k == n and k <= ctx.fp.s
     if k == 0:
         return a
-    return _ntt_axis1(ctx, a.reshape(ctx.nl, n, 1), False).reshape(ctx.nl, n)
+    return _ntt_axis1(ctx, a.reshape(ctx.nl, n, 1), False, fused).reshape(ctx.nl, n)
 
 
-def intt(ctx: FieldCtx, a):
+def intt(ctx: FieldCtx, a, fused: bool = True):
     n = a.shape[-1]
     k = n.bit_length() - 1
     assert 1 << k == n
     if k == 0:
         return a
-    return _ntt_axis1(ctx, a.reshape(ctx.nl, n, 1), True).reshape(ctx.nl, n)
+    return _ntt_axis1(ctx, a.reshape(ctx.nl, n, 1), True, fused).reshape(ctx.nl, n)

@@ -7,8 +7,8 @@ Prover (5 rounds, reference :222-888), whole-array on the card by default:
     product scan (`ftorch.assoc_scan`)
   - quotient T: elementwise passes over the 4n domain (K-field) with the MulZ
     blinding-correction tables (reference src/mul_z.js) as tiled constants
-  - iNTTs of n, NTTs and iNTTs of 4n: the digit-matmul NTT (K-mm, or
-    K-mm-norm with SNARKJS_NTT_FUSED=1) from 2^12 up
+  - iNTTs of n, NTTs and iNTTs of 4n: the digit-matmul NTT (K-mm-norm) from
+    2^12 up
   - divZh: block cumsum; opening quotients Wxi/Wxiw: synthetic division as an
     affine-composition scan (poly/fops.py)
   - nine commitments: the suffix-scan MSM (K-scan) over the zkey's SRS, which

@@ -149,20 +149,62 @@ def test_norm_consts_layout():
 
 @pytest.mark.parametrize("fn,k", [("ntt", 6), ("intt", 6), ("intt", 11)])
 def test_fused_route_equals_unfused(fn, k, monkeypatch):
+    """The default route is K-mm-norm's; `fused=False` takes K-mm and the
+    PyTorch `_normalize_cols`, and gives the same limbs."""
     A = ftorch.to_tensor(_data(k, 7), "cpu")
     ctx = ftorch.get_ctx(FR)
+    calls = {"norm": 0, "mm": 0}
+    real_norm, real_mm = ntt_mm.digit_mm_norm, ntt_mm.digit_mm
+
+    def count(name, real):
+        def wrapped(*a):
+            calls[name] += 1
+            return real(*a)
+        return wrapped
+
+    monkeypatch.setattr(ntt_mm, "digit_mm_norm", count("norm", real_norm))
+    monkeypatch.setattr(ntt_mm, "digit_mm", count("mm", real_mm))
     want = getattr(ntt_mm, fn)(ctx, A)
-    calls = []
-    real = ntt_mm.digit_mm_norm
-    monkeypatch.setattr(ntt_mm, "digit_mm_norm",
-                        lambda *a: calls.append(1) or real(*a))
-    monkeypatch.setenv("SNARKJS_NTT_FUSED", "1")
-    got = getattr(ntt_mm, fn)(ctx, A)
-    assert calls, "SNARKJS_NTT_FUSED=1 did not take the fused route"
+    assert calls["norm"] and not calls["mm"], "the default is not the fused route"
+    calls["norm"] = 0
+    got = getattr(ntt_mm, fn)(ctx, A, fused=False)
+    assert calls["mm"] and not calls["norm"], "fused=False did not take K-mm"
     assert torch.equal(got, want)
-    monkeypatch.setenv("SNARKJS_NTT_FUSED", "0")
-    calls.clear()
-    assert torch.equal(getattr(ntt_mm, fn)(ctx, A), want) and not calls
+
+
+@pytest.mark.parametrize("q,m", [(8, 16), (5, 3)])
+def test_y_major_is_to_digits_permuted(q, m):
+    """The layout the kernels read: (nd, m, q), contiguous, equal to the JAX
+    package's digits with the last two axes swapped."""
+    fp = fjnp.get_ctx(FR).fp
+    limbs = np.random.default_rng(q).integers(0, 1 << 16, (fp.nl, q, m)).astype(
+        np.uint32)
+    want = np.asarray(ntt_mxu._to_digits(fp, jnp.asarray(limbs))).transpose(0, 2, 1)
+    got = ntt_mm._y_major(ntt_mm._to_digits(
+        ftorch.get_ctx(FR).fp, ftorch.to_tensor(limbs, "cpu")))
+    assert got.is_contiguous() and got.shape == (fp.n8 + 1, m, q)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("field", [FR, "bls12_381_fr"])
+def test_carry_then_reduce_is_normalize_cols(field):
+    """K-mm-norm's epilogue starts from the digits its carry pass retired:
+    reduce(carry(cols)) against ntt_mxu._normalize_cols on the same columns,
+    and the digits are the base-256 digits of the columns' value.  Exact."""
+    fpj = fjnp.get_ctx(field).fp
+    fp = ftorch.get_ctx(field).fp
+    rng = np.random.default_rng(11)
+    W8 = rng.integers(-128, 128, (fpj.n8 + 1, 16, 16)).astype(np.int8)
+    limbs = rng.integers(0, 1 << 16, (fpj.nl, 16, 6)).astype(np.uint32)
+    D8 = ntt_mxu._to_digits(fpj, jnp.asarray(limbs))
+    cols = np.asarray(ntt_mxu._einsum_mm(jnp.asarray(W8), D8))
+    want = np.asarray(ntt_mxu._normalize_cols(fpj, jnp.asarray(cols)))
+    digs = ntt_mm._carry_digits(torch.tensor(cols))
+    assert digs.dtype == torch.uint8 and digs.shape[0] == cols.shape[0] + 3
+    got = ntt_mm._reduce_digits(fp, digs)
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+    value = sum(int(c) << (8 * i) for i, c in enumerate(cols[:, 3, 2]))
+    assert value == sum(int(d) << (8 * i) for i, d in enumerate(digs[:, 3, 2]))
 
 
 # ------------------------------------------------ extended and union domains

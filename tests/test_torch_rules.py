@@ -131,6 +131,24 @@ def test_kernel_wrappers_do_not_fall_back_on_cuda_tensors(monkeypatch):
     ntt_mm._norm_lib.cache_clear()
 
 
+def test_no_module_reads_the_environment_for_a_route():
+    """One NTT route, chosen by keyword: no module of the port reads
+    os.environ, but for the build's NVCC (where the compiler is)."""
+    pkg = os.path.join(ROOT, "snarkjs_tpu_torch")
+    hits = []
+    for base, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(base, fn)
+                for n, line in enumerate(open(path), 1):
+                    if "environ" in line or "getenv" in line:
+                        hits.append((os.path.relpath(path, pkg), line.strip()))
+    assert [h[0] for h in hits] == ["_build.py"], hits
+    assert "NVCC" in hits[0][1]
+    for fn in os.listdir(os.path.join(pkg, "csrc")):
+        assert "getenv" not in open(os.path.join(pkg, "csrc", fn)).read(), fn
+
+
 def test_plain_versions_only_inside_context():
     t = torch.zeros(4, 2, dtype=torch.int32)
     assert not ftorch.use_kernel(t)
@@ -167,21 +185,27 @@ def test_k_field_matches_plain_on_card(card, name):
     assert torch.equal(ftorch.neg(ctx, a), want)
 
 
+MM_SHAPES = [(64, 64, 96), (4, 4, 256), (256, 256, 4), (5, 10, 6),
+             (256, 256, 1024), (1024, 1024, 256)]
+
+
 @pytest.mark.cuda
-def test_k_mm_matches_plain_on_card(card):
+@pytest.mark.parametrize("r,q,m", MM_SHAPES)
+def test_k_mm_matches_plain_on_card(card, r, q, m):
     from snarkjs_tpu_torch.ntt import ntt_mm
 
     g = torch.Generator().manual_seed(3)
-    W8 = torch.randint(-128, 128, (33, 64, 64), generator=g, dtype=torch.int8)
-    D8 = torch.randint(-128, 128, (33, 64, 96), generator=g, dtype=torch.int8)
-    got = ntt_mm.digit_mm(W8.to(card), D8.to(card)).cpu()
-    assert torch.equal(got, ntt_mm.digit_mm_plain(W8, D8))
+    W8 = torch.randint(-128, 128, (33, r, q), generator=g, dtype=torch.int8)
+    D8 = torch.randint(-128, 128, (33, q, m), generator=g, dtype=torch.int8)
+    before = ntt_mm.LAUNCHES[0]
+    got = ntt_mm.digit_mm(W8.to(card), D8.to(card))
+    assert ntt_mm.LAUNCHES[0] == before + 1
+    assert torch.equal(got, ntt_mm.digit_mm_plain(W8.to(card), D8.to(card)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("field", ["bn254_fr", "bls12_381_fr"])
-@pytest.mark.parametrize("r,q,m", [(64, 64, 96), (4, 4, 256), (256, 256, 4),
-                                   (5, 10, 6)])
+@pytest.mark.parametrize("r,q,m", MM_SHAPES)
 def test_k_mm_norm_matches_plain_on_card(card, field, r, q, m):
     from snarkjs_tpu_torch.ntt import ntt_mm
 
@@ -192,9 +216,9 @@ def test_k_mm_norm_matches_plain_on_card(card, field, r, q, m):
                           dtype=torch.int32)
     D8 = ntt_mm._to_digits(fp, limbs)
     before = ntt_mm.NORM_LAUNCHES[0]
-    got = ntt_mm.digit_mm_norm(fp, W8.to(card), D8.to(card)).cpu()
+    got = ntt_mm.digit_mm_norm(fp, W8.to(card), D8.to(card))
     assert ntt_mm.NORM_LAUNCHES[0] == before + 1
-    assert torch.equal(got, ntt_mm.digit_mm_norm_plain(fp, W8, D8))
+    assert torch.equal(got, ntt_mm.digit_mm_norm_plain(fp, W8.to(card), D8.to(card)))
 
 
 @pytest.mark.cuda
