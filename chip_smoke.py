@@ -84,7 +84,7 @@ INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 IMAD_PER_CLK_SM = 64        # 32-bit integer multiply-add results/clk/SM, cc 9.0
 N_CONSTRAINTS = 600_000
 PLONK_CONSTRAINTS = 200_000  # + 1 public-input row: domain 2^18
-PAIRED_PROVES = 5            # warm proves per NTT route in a paired timing
+PAIRED_PROVES = 7            # warm proves per NTT route in a paired timing
 
 
 def log(msg):
@@ -192,13 +192,13 @@ def recorded_shapes():
     seen = {k: collections.Counter() for k in ("digit_mm", "digit_mm_norm", "msm_scan")}
     mm, mm_norm, scan = ntt_mm.digit_mm, ntt_mm.digit_mm_norm, msm_gpu.scan
 
-    def rec_mm(W8, D8):
-        seen["digit_mm"][(*W8.shape[1:], D8.shape[2])] += 1
-        return mm(W8, D8)
+    def rec_mm(W8, D8, y_major=False):
+        seen["digit_mm"][(*W8.shape[1:], D8.shape[1 if y_major else 2])] += 1
+        return mm(W8, D8, y_major)
 
-    def rec_mm_norm(fp, W8, D8):
-        seen["digit_mm_norm"][(*W8.shape[1:], D8.shape[2])] += 1
-        return mm_norm(fp, W8, D8)
+    def rec_mm_norm(fp, W8, D8, y_major=False):
+        seen["digit_mm_norm"][(*W8.shape[1:], D8.shape[1 if y_major else 2])] += 1
+        return mm_norm(fp, W8, D8, y_major)
 
     def rec_scan(fq, b, ext, xyT):
         seen["msm_scan"][tuple(xyT.shape)] += 1
@@ -585,24 +585,27 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs):
 
 def mm_case(dev, gen, kernel, shape, launches, path, errs):
     """K-mm or K-mm-norm (bn254 Fr) against its plain version at one stage
-    shape (r, q, m), with its time and bound there."""
+    shape (r, q, m), with its time and bound there.  Compared in both operand
+    layouts; timed as the NTT calls it, with the data digits y-major."""
     r, q, m = shape
     fp = ftorch.get_ctx("bn254_fr").fp
     W8, D8 = mm_inputs(dev, gen, "bn254_fr", r.bit_length() - 1, r, q, m)
+    DT = ntt_mm._y_major(D8)
     if kernel == "digit_mm_norm":
-        fn, plain = (lambda: ntt_mm.digit_mm_norm(fp, W8, D8),
-                     lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
+        fn, jax_layout, plain = (lambda: ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True),
+                                 lambda: ntt_mm.digit_mm_norm(fp, W8, D8),
+                                 lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
     else:
-        fn, plain = (lambda: ntt_mm.digit_mm(W8, D8),
-                     lambda: ntt_mm.digit_mm_plain(W8, D8))
-    got = fn()
+        fn, jax_layout, plain = (lambda: ntt_mm.digit_mm(W8, DT, y_major=True),
+                                 lambda: ntt_mm.digit_mm(W8, D8),
+                                 lambda: ntt_mm.digit_mm_plain(W8, D8))
     plain_ms, want = wall_ms(plain)
-    e = max_abs_err(got, want)
+    e = max(max_abs_err(fn(), want), max_abs_err(jax_layout(), want))
     check(e == 0, f"{kernel} {shape} differs from plain ({e})")
     errs[kernel] = max(errs[kernel], e)
     ms = cuda_ms(fn, 5)
     nd = W8.shape[0]
-    bms, by = bound(W8.numel() + D8.numel() + got.numel() * 4,
+    bms, by = bound(W8.numel() + D8.numel() + want.numel() * 4,
                     2 * nd * nd * r * q * m, INT8_OPS_PER_S)
     log(f"  {kernel} {shape} x{launches} ({path}) == plain: {ms:.3f} ms  "
         f"plain {plain_ms:.1f} ms  bound {bms:.3f} ms ({by})")
@@ -655,15 +658,17 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
           f"the Groth16 prove's K-mm-norm shapes are not 12 x 1024^3: "
           f"{shapes['digit_mm_norm']}")
     W8, D8 = mm_inputs(dev, gen)
+    DT = ntt_mm._y_major(D8)          # the layout the NTT hands the kernels
     nd, r, q = W8.shape
     mm = D8.shape[2]
-    got = ntt_mm.digit_mm(W8, D8)
+    got = ntt_mm.digit_mm(W8, DT, y_major=True)
     plain_ms, want = wall_ms(lambda: ntt_mm.digit_mm_plain(W8, D8))
-    e = max_abs_err(got, want)
+    e = max(max_abs_err(got, want), max_abs_err(ntt_mm.digit_mm(W8, D8), want))
     check(e == 0, f"K-mm differs from plain ({e})")
     errs["digit_mm"] = e
-    ms = cuda_ms(lambda: ntt_mm.digit_mm(W8, D8), 5)
-    log(f"  (nd, q, m) -> (nd, m, q) of D8 at 1024^3, inside both wrappers' times: "
+    ms = cuda_ms(lambda: ntt_mm.digit_mm(W8, DT, y_major=True), 5)
+    log(f"  K-mm at 1024^3 from the JAX layout (nd, q, m), transposed in the wrapper: "
+        f"{cuda_ms(lambda: ntt_mm.digit_mm(W8, D8), 5):.3f} ms, of which the transpose "
         f"{cuda_ms(lambda: ntt_mm._y_major(D8), 5):.3f} ms")
     nc = 2 * nd - 1
     toe = torch.zeros((nd, q, nc, mm), dtype=torch.int8, device=dev)
@@ -691,13 +696,15 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
 
     # K-mm-norm at the same 1024^3 stage (all 12 stages of the Groth16 prove,
     # 12 of the 20 of a PLONK prove)
-    gotn = ntt_mm.digit_mm_norm(fp, W8, D8)
+    gotn = ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True)
     plain_n_ms, wantn = wall_ms(lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
-    e = max(max_abs_err(gotn, wantn), max_abs_err(gotn, lib_limbs))
+    e = max(max_abs_err(gotn, wantn), max_abs_err(gotn, lib_limbs),
+            max_abs_err(ntt_mm.digit_mm_norm(fp, W8, D8), wantn))
     check(e == 0, f"K-mm-norm differs from plain or from _int_mm + normalize ({e})")
     errs["digit_mm_norm"] = max(errs["digit_mm_norm"], e)
-    ms_n = cuda_ms(lambda: ntt_mm.digit_mm_norm(fp, W8, D8), 5)
-    unfused_ms = cuda_ms(lambda: ntt_mm._normalize_cols(fp, ntt_mm.digit_mm(W8, D8)), 5)
+    ms_n = cuda_ms(lambda: ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True), 5)
+    unfused_ms = cuda_ms(
+        lambda: ntt_mm._normalize_cols(fp, ntt_mm.digit_mm(W8, DT, y_major=True)), 5)
     bms, by = bound(W8.numel() + D8.numel() + gotn.numel() * 4,
                     2 * nd * nd * r * q * mm, INT8_OPS_PER_S)
     log(f"  K-mm-norm (33,1024,1024)x(33,1024,1024) == plain: {ms_n:.3f} ms  "

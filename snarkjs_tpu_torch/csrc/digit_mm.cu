@@ -29,8 +29,9 @@ using namespace digit_mma;
 template <class T>
 __global__ void __launch_bounds__(THREADS)
 digit_mm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
-                int32_t* __restrict__ out, int nd, int r, int q, int m, int tiles_x, int tiles,
-                int groups, bool aligned) {
+                const __grid_constant__ CUtensorMap mapW, const __grid_constant__ CUtensorMap mapD,
+                bool tma, int32_t* __restrict__ out, int nd, int r, int q, int m, int tiles_x,
+                int tiles, int groups) {
   extern __shared__ uint8_t dynamic_smem[];
   const uint32_t ring = ring_base<T>(dynamic_smem);
   // blockIdx.x = rank * tiles + tile; rank 0 is the middle column group
@@ -45,7 +46,8 @@ digit_mm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
   for (int l = 0; l < T::L; l++)
 #pragma unroll
     for (int e = 0; e < T::ACC; e++) acc[l][e] = 0;
-  accumulate<T>(acc, W, DT, nd, r, q, m, k0, x0, c0, ring, aligned);
+  const Operands op{W, DT, &mapW, &mapD, tma};
+  accumulate<T>(acc, op, nd, r, q, m, k0, x0, c0, ring);
 
   const bool pairs = (m & 1) == 0;    // then (k, x even) is 8-byte aligned
 #pragma unroll
@@ -74,13 +76,14 @@ int launch(const int8_t* W, const int8_t* DT, int32_t* out, int nd, int r, int q
   const int64_t tiles = (int64_t)tiles_x * ((r + TK - 1) / TK);
   const int groups = (2 * nd - 1 + T::L - 1) / T::L;
   if (tiles * groups > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const bool aligned = q % 16 == 0 && ((reinterpret_cast<uintptr_t>(W) |
-                                        reinterpret_cast<uintptr_t>(DT)) & 15) == 0;
+  CUtensorMap mapW, mapD;
+  bool tma;
+  if (!make_maps<T>(&mapW, &mapD, &tma, W, DT, nd, r, q, m)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(digit_mm_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   digit_mm_kernel<T><<<(unsigned)(tiles * groups), THREADS, T::SMEM, stream>>>(
-      W, DT, out, nd, r, q, m, tiles_x, (int)tiles, groups, aligned);
+      W, DT, mapW, mapD, tma, out, nd, r, q, m, tiles_x, (int)tiles, groups);
   return (int)cudaGetLastError();
 }
 

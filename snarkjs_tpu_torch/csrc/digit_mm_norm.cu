@@ -149,12 +149,15 @@ struct Scratch {
 template <int N8, class T>
 __global__ void __launch_bounds__(THREADS)
 digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
+                     const __grid_constant__ CUtensorMap mapW,
+                     const __grid_constant__ CUtensorMap mapD, bool tma,
                      int32_t* __restrict__ out, uint32_t* scratch, int r, int q, int m,
-                     int tiles_x, int tiles, bool aligned, const NormConsts<N8> K) {
+                     int tiles_x, int tiles, const NormConsts<N8> K) {
   using C = NormConsts<N8>;
   constexpr int L = T::L, ACC = T::ACC;
   extern __shared__ uint8_t dynamic_smem[];
   const uint32_t ring = ring_base<T>(dynamic_smem);
+  const Operands op{W, DT, &mapW, &mapD, tma};
   uint32_t* mine = scratch + (int64_t)blockIdx.x * Scratch<T>::WORDS + threadIdx.x;
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -167,7 +170,7 @@ digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT
 
     for (int c0 = 0; c0 < C::NCAP; c0 += L) {
       // acc[0] comes in holding the carry out of column c0 - 1
-      accumulate<T>(acc, W, DT, C::ND, r, q, m, k0, x0, c0, ring, aligned);
+      accumulate<T>(acc, op, C::ND, r, q, m, k0, x0, c0, ring);
       // 1) retire the columns in order: digit = low byte, the rest carries on
 #pragma unroll
       for (int l = 0; l < L; l++) {
@@ -224,13 +227,16 @@ int launch(const int8_t* W, const int8_t* DT, int32_t* out, void* scratch, long 
   const int tiles_x = (m + T::TX - 1) / T::TX;
   const int64_t tiles = (int64_t)tiles_x * ((r + TK - 1) / TK);
   if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const bool aligned = q % 16 == 0 && ((reinterpret_cast<uintptr_t>(W) |
-                                        reinterpret_cast<uintptr_t>(DT)) & 15) == 0;
+  CUtensorMap mapW, mapD;
+  bool tma;
+  if (!make_maps<T>(&mapW, &mapD, &tma, W, DT, NormConsts<32>::ND, r, q, m))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(digit_mm_norm_kernel<32, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
   digit_mm_norm_kernel<32, T><<<blocks, THREADS, T::SMEM, stream>>>(
-      W, DT, out, static_cast<uint32_t*>(scratch), r, q, m, tiles_x, (int)tiles, aligned, K);
+      W, DT, mapW, mapD, tma, out, static_cast<uint32_t*>(scratch), r, q, m, tiles_x, (int)tiles,
+      K);
   return (int)cudaGetLastError();
 }
 

@@ -19,11 +19,16 @@
 //
 // Two rings hold the tiles, P + 1 stages of W and P + L of D, each tile rows
 // of 128 bytes of y in the 128-byte swizzle the wgmma descriptor names.  Tiles
-// are filled by 16-byte cp.async, P steps ahead (zero-filled past r, m and q; a
-// guarded byte path serves q that is no multiple of 16 or unaligned bases).
+// are filled P steps ahead by the tensor memory accelerator: one thread asks
+// for a whole tile (zero-filled past r, m and q) and the copy reports to the
+// stage's mbarrier, so no thread spends load instructions on operands.  A
+// tensor map needs rows of a multiple of 16 bytes at a 16-byte aligned base;
+// for any other q the threads fill the tiles themselves, byte by byte.
 #pragma once
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <cstring>
 
 namespace digit_mma {
 
@@ -44,21 +49,45 @@ struct Tile {
   static constexpr int D_BYTES = TX * KY;
   static constexpr int D_RING = SW * W_BYTES;              // offset of the D ring
   static constexpr int ZERO = D_RING + SD * D_BYTES;       // 1 KB of zeros after the rings
-  static constexpr int SMEM = ZERO + 1024 + 1024;  // + slack to align the ring to 1024
+  static constexpr int BARS = ZERO + 1024;                 // SW + SD mbarriers
+  static constexpr int SMEM = BARS + 8 * (SW + SD) + 1024;  // + slack to align the ring to 1024
   static_assert(TX == 64 || TX == 128, "wgmma wrappers exist for N = 64 and 128");
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Spins until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// One box of a 3-d tensor map (y, row, digit) into shared memory; completes
+// on the mbarrier with the box's bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int y,
+                                         int row, int digit) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(y), "r"(row), "r"(digit)
+      : "memory");
 }
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -155,11 +184,12 @@ __device__ __forceinline__ void mma(int (&d)[TX / 2], uint64_t a, uint64_t b) {
   else mma_n128(d, a, b);
 }
 
-// ROWS x 128 bytes of one digit plane (rows of q bytes) into a swizzled tile:
-// rows row0.. of `nrows`, bytes y0.. of q, zero beyond either.
+// ROWS x 128 bytes of one digit plane (rows of q bytes) into a swizzled tile,
+// by all threads, byte by byte: rows row0.. of `nrows`, bytes y0.. of q, zero
+// beyond either.  The way in for operands that no tensor map can describe.
 template <int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t tile, const int8_t* plane, int row0, int nrows,
-                                          int q, int y0, bool aligned) {
+                                          int q, int y0) {
 #pragma unroll
   for (int n = 0; n < ROWS * 8 / THREADS; n++) {
     const int id = threadIdx.x + n * THREADS;
@@ -170,27 +200,33 @@ __device__ __forceinline__ void load_rows(uint32_t tile, const int8_t* plane, in
     if (row0 + row >= nrows) bytes = 0;
     const uint32_t dst = tile + row * KY + ((ch ^ (row & 7)) << 4);
     const int8_t* src = plane + (int64_t)(row0 + row) * q + y;
-    if (aligned) {
-      cp_async16(dst, bytes ? src : plane, bytes);
-    } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int b = 0; b < 16; b++)
-        if (b < bytes) w[b >> 2] |= (uint32_t)(uint8_t)src[b] << (8 * (b & 3));
-      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(w[0]), "r"(w[1]),
-                   "r"(w[2]), "r"(w[3])
-                   : "memory");
-    }
+    for (int b = 0; b < 16; b++)
+      if (b < bytes) w[b >> 2] |= (uint32_t)(uint8_t)src[b] << (8 * (b & 3));
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(w[0]), "r"(w[1]),
+                 "r"(w[2]), "r"(w[3])
+                 : "memory");
   }
 }
+
+// The operands of one launch: the planes, and their tensor maps where they
+// allow one (`tma`); the maps live in the kernel's parameters.
+struct Operands {
+  const int8_t* W;          // (nd, r, q)
+  const int8_t* DT;         // (nd, m, q)
+  const CUtensorMap* mapW;  // boxes of (128 y, TK rows, 1 digit)
+  const CUtensorMap* mapD;  // boxes of (128 y, TX rows, 1 digit)
+  bool tma;
+};
 
 // acc[l] += column c0 + l of the tile at (k0, x0), l = 0 .. L-1.  Columns past
 // 2nd - 2 get nothing.  `ring` is the shared-memory address of the ring,
 // aligned to 1024.  Every thread of the block calls it, converged.
 template <class T>
-__device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const int8_t* W,
-                                           const int8_t* DT, int nd, int r, int q, int m, int k0,
-                                           int x0, int c0, uint32_t ring, bool aligned) {
+__device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const Operands& op, int nd,
+                                           int r, int q, int m, int k0, int x0, int c0,
+                                           uint32_t ring) {
   constexpr int L = T::L, P = T::P, SW = T::SW, SD = T::SD;
   // steps i_first .. i_last; those below 0 only bring in the D tiles that the
   // first products of columns c0+1 .. c0+L-1 need
@@ -198,35 +234,60 @@ __device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const int8_
   const int i_last = min(nd - 1, c0 + L - 1);
   if (i_last < i_first) return;
   const int steps = (i_last - i_first + 1) * ((q + KY - 1) / KY);
+  const uint64_t zero = make_desc(ring + T::ZERO, 0);
+  const uint32_t barW = ring + T::BARS, barD = barW + 8 * SW;
+
+  __syncthreads();                    // the rings are free: every earlier product is done
+  if (op.tma) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < SW + SD; s++) mbar_init(barW + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
 
   int li = i_first, ly = 0, lw = 0, ld = 0;   // the loader's digit, y chunk and stages
   auto load_step = [&]() {
     const int j = c0 - li;
-    if (li >= 0)
-      load_rows<TK>(ring + lw * T::W_BYTES, W + (int64_t)li * r * q, k0, r, q, ly * KY, aligned);
-    if (j >= 0 && j < nd)
-      load_rows<T::TX>(ring + T::D_RING + ld * T::D_BYTES, DT + (int64_t)j * m * q, x0, m, q,
-                       ly * KY, aligned);
+    const bool has_d = j >= 0 && j < nd;
+    const uint32_t wt = ring + lw * T::W_BYTES, dt = ring + T::D_RING + ld * T::D_BYTES;
+    if (!op.tma) {
+      if (li >= 0) load_rows<TK>(wt, op.W + (int64_t)li * r * q, k0, r, q, ly * KY);
+      if (has_d) load_rows<T::TX>(dt, op.DT + (int64_t)j * m * q, x0, m, q, ly * KY);
+    } else if (threadIdx.x == 0) {
+      // every step completes one phase of both its barriers, tile or not
+      if (li >= 0) {
+        mbar_expect(barW + 8 * lw, T::W_BYTES);
+        tma_load(wt, op.mapW, barW + 8 * lw, ly * KY, k0, li);
+      } else {
+        mbar_arrive(barW + 8 * lw);
+      }
+      if (has_d) {
+        mbar_expect(barD + 8 * ld, T::D_BYTES);
+        tma_load(dt, op.mapD, barD + 8 * ld, ly * KY, x0, j);
+      } else {
+        mbar_arrive(barD + 8 * ld);
+      }
+    }
     if (++li > i_last) { li = i_first; ly++; }
     if (++lw == SW) lw = 0;
     if (++ld == SD) ld = 0;
   };
 
-  const uint64_t zero = make_desc(ring + T::ZERO, 0);
-  cp_async_wait<0>();
-  __syncthreads();                    // the ring is free: every earlier product is done
 #pragma unroll
-  for (int p = 0; p < P; p++) {
+  for (int p = 0; p < P; p++)
     if (p < steps) load_step();
-    cp_async_commit();
-  }
   int ci = i_first, cw = 0, cd = 0;   // the products' digit and stages
+  uint32_t pw = 0, pd = 0;            // ... and the parity of their barriers' phases
   for (int g = 0; g < steps; g++) {
-    cp_async_wait<P - 1>();           // this thread's copies of step g have landed
-    fence_proxy_async();              // ... and are visible to the tensor cores
-    __syncthreads();                  // every thread's; and step g-1's products are done
+    if (!op.tma) fence_proxy_async();  // tiles stored by threads, for the tensor cores
+    __syncthreads();                  // step g-1's products are done, in every warp
     if (g + P < steps) load_step();   // into the stages steps g-1 and g-L used last
-    cp_async_commit();
+    if (op.tma) {
+      mbar_wait(barW + 8 * cw, pw);
+      mbar_wait(barD + 8 * cd, pd);
+    }
     if (ci >= 0) {
       // L x 4 products in one straight line (branches between them would make
       // the compiler fence each one): a pair that does not exist multiplies
@@ -252,8 +313,8 @@ __device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const int8_
       for (int l = 0; l < L; l++) fence_regs(acc[l]);
     }
     if (++ci > i_last) ci = i_first;
-    if (++cw == SW) cw = 0;
-    if (++cd == SD) cd = 0;
+    if (++cw == SW) { cw = 0; pw ^= 1; }
+    if (++cd == SD) { cd = 0; pd ^= 1; }
   }
 }
 
@@ -281,6 +342,46 @@ __device__ __forceinline__ int acc_row(int e) {
 }
 __device__ __forceinline__ int acc_col(int e) {
   return 8 * (e >> 2) + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// Tensor map of digit planes (nd, rows, q) int8 with boxes of (1, box_rows,
+// 128 y) in the 128-byte swizzle.  False when the driver refuses.
+inline bool encode_planes(CUtensorMap* map, const void* base, int nd, int rows, int q,
+                          int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return false;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)q, (cuuint64_t)rows, (cuuint64_t)nd};
+  const cuuint64_t strides[2] = {(cuuint64_t)q, (cuuint64_t)rows * q};
+  const cuuint32_t box[3] = {KY, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Both maps of a launch; `tma` is false (and the maps unused) where q or a
+// base does not allow them.  Returns false when the driver refuses a map it
+// should take.
+template <class T>
+inline bool make_maps(CUtensorMap* mapW, CUtensorMap* mapD, bool* tma, const void* W,
+                      const void* DT, int nd, int r, int q, int m) {
+  memset(mapW, 0, sizeof(CUtensorMap));
+  memset(mapD, 0, sizeof(CUtensorMap));
+  *tma = q % 16 == 0 &&
+         ((reinterpret_cast<uintptr_t>(W) | reinterpret_cast<uintptr_t>(DT)) & 15) == 0;
+  return !*tma || (encode_planes(mapW, W, nd, r, q, TK) && encode_planes(mapD, DT, nd, m, q, T::TX));
 }
 
 }  // namespace digit_mma

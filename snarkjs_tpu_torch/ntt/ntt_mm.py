@@ -26,7 +26,10 @@ never ask for that.
 
 Both kernels share one tensor-core main loop (csrc/digit_mma.cuh), which
 wants the summed index y contiguous in both operands: W8 (nd, r, q) has it,
-the data digits are handed over as (nd, m, q) (`_y_major`).
+the data digits are handed over as (nd, m, q).  The NTT keeps the axis it
+transforms innermost (`_ntt_last`), so its digits come out in that layout
+(`y_major=True`); the wrappers' default is the JAX package's (nd, q, m),
+which they transpose once (`_y_major`).
 """
 
 from __future__ import annotations
@@ -296,24 +299,25 @@ def _lib():
     return lib
 
 
-def _check_operands(what: str, W8, D8):
+def _check_operands(what: str, W8, D8, y_major: bool):
+    """Raises unless D8 fits W8 (nd, r, q); returns (nd, r, q, m)."""
     nd, r, q = W8.shape
-    if (W8.dtype != torch.int8 or D8.dtype != torch.int8
-            or W8.device != D8.device or D8.shape[:2] != (nd, q)):
-        raise ValueError(f"{what} takes int8 W8 (nd, r, q) and D8 (nd, q, m) "
-                         "on one device")
+    if (W8.dtype != torch.int8 or D8.dtype != torch.int8 or W8.device != D8.device
+            or D8.dim() != 3 or D8.shape[0] != nd or D8.shape[2 if y_major else 1] != q):
+        raise ValueError(f"{what} takes int8 W8 (nd, r, q) and D8 (nd, q, m), or "
+                         "(nd, m, q) with y_major, on one device")
+    return nd, r, q, D8.shape[1 if y_major else 2]
 
 
-def digit_mm(W8, D8):
-    """W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> (2nd-1, r, m) int32.
+def digit_mm(W8, D8, y_major: bool = False):
+    """W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> (2nd-1, r, m) int32; with
+    y_major D8 comes as (nd, m, q).
 
     CUDA tensors launch K-mm; CPU tensors take `digit_mm_plain`."""
     if not ftorch.use_kernel(D8):
-        return digit_mm_plain(W8, D8)
-    _check_operands("K-mm", W8, D8)
-    nd, r, q = W8.shape
-    m = D8.shape[2]
-    W8, DT = W8.contiguous(), _y_major(D8)
+        return digit_mm_plain(W8, D8.transpose(1, 2) if y_major else D8)
+    nd, r, q, m = _check_operands("K-mm", W8, D8, y_major)
+    W8, DT = W8.contiguous(), D8.contiguous() if y_major else _y_major(D8)
     out = torch.empty((2 * nd - 1, r, m), dtype=torch.int32, device=D8.device)
     if out.numel():
         err = _lib().snark_digit_mm(W8.data_ptr(), DT.data_ptr(), out.data_ptr(),
@@ -360,18 +364,17 @@ def _norm_lib():
     return lib
 
 
-def digit_mm_norm(fp: FieldParams, W8, D8):
-    """W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> (nl, r, m) limbs in [0, p).
+def digit_mm_norm(fp: FieldParams, W8, D8, y_major: bool = False):
+    """W8 (nd, r, q) int8, D8 (nd, q, m) int8 -> (nl, r, m) limbs in [0, p);
+    with y_major D8 comes as (nd, m, q).
 
     CUDA tensors launch K-mm-norm; CPU tensors take `digit_mm_norm_plain`."""
     if not ftorch.use_kernel(D8):
-        return digit_mm_norm_plain(fp, W8, D8)
-    _check_operands("K-mm-norm", W8, D8)
-    nd, r, q = W8.shape
+        return digit_mm_norm_plain(fp, W8, D8.transpose(1, 2) if y_major else D8)
+    nd, r, q, m = _check_operands("K-mm-norm", W8, D8, y_major)
     if nd != _nd(fp) or fp.n8 != 32:
         raise ValueError("K-mm-norm is built for 32-byte fields (nd = 33)")
-    m = D8.shape[2]
-    W8, DT = W8.contiguous(), _y_major(D8)
+    W8, DT = W8.contiguous(), D8.contiguous() if y_major else _y_major(D8)
     consts = _norm_consts(fp.name)
     lib = _norm_lib()
     if lib.snark_digit_mm_norm_consts_bytes() != len(consts):
@@ -398,40 +401,42 @@ def _w_matrix_on(field_name: str, k: int, inverse: bool, device: str):
     return torch.from_numpy(_w_matrix_digits(field_name, k, inverse)).to(device)
 
 
-def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, a, fused: bool = True):
-    """Direct DFT matmul along axis 1: a (nl, r, m) -> (nl, r, m), through
-    K-mm-norm; with fused=False through K-mm and `_normalize_cols`."""
+def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, aT, fused: bool = True):
+    """Direct DFT matmul along the last axis: aT (nl, m, r) -> (nl, r, m),
+    through K-mm-norm; with fused=False through K-mm and `_normalize_cols`."""
     fp = ctx.fp
-    W8 = _w_matrix_on(fp.name, k, inverse, str(a.device))
-    D8 = _to_digits(fp, a)
+    W8 = _w_matrix_on(fp.name, k, inverse, str(aT.device))
+    DT = _to_digits(fp, aT)           # (nd, m, q): y innermost, as the kernels read
     if fused:
-        return digit_mm_norm(fp, W8, D8)
-    return _normalize_cols(fp, digit_mm(W8, D8))
+        return digit_mm_norm(fp, W8, DT, y_major=True)
+    return _normalize_cols(fp, digit_mm(W8, DT, y_major=True))
 
 
-def _ntt_axis1(ctx: FieldCtx, a, inverse: bool, fused: bool = True):
-    """NTT along axis 1 of a (nl, sz, bt); returns the same shape."""
-    nl, sz, bt = a.shape
+def _ntt_last(ctx: FieldCtx, aT, inverse: bool, fused: bool = True):
+    """NTT along the last axis of aT (nl, bt, sz); returns (nl, sz, bt): a
+    matmul stage takes its data with the summed axis innermost and leaves the
+    transformed axis outermost, which is what the next stage wants."""
+    nl, bt, sz = aT.shape
     k = sz.bit_length() - 1
     if k == 0:
-        return a
+        return aT.reshape(nl, sz, bt)
     if k <= MAX_LOG_R:
-        return _mm_stage(ctx, k, inverse, a, fused)
+        return _mm_stage(ctx, k, inverse, aT, fused)
     k1 = MAX_LOG_R
     n1, n2 = 1 << k1, 1 << (k - k1)
-    # stage A: NTT over j2 for each (j1, bt)
-    y = _ntt_axis1(ctx, a.reshape(nl, n2, n1 * bt), inverse, fused)
+    # stage A: NTT over j2 for each (j1, bt); index j = j2 * n1 + j1
+    y = _ntt_last(ctx, aT.reshape(nl, bt, n2, n1).permute(0, 3, 1, 2).reshape(
+        nl, n1 * bt, n2), inverse, fused)
     y = y.reshape(nl, n2, n1, bt)
     # twiddle w^(j1*k2), built on device from two factored ladders
     s, A, B = _twiddle_parts(ctx.fp.name, k, k1, inverse)
-    dev = a.device
+    dev = aT.device
     tw = ftorch.mont_mul(
         ctx, ftorch.to_tensor(A, dev).reshape(nl, 1, s, n1),
         ftorch.to_tensor(B, dev).reshape(nl, n2 // s, 1, n1)).reshape(nl, n2, n1)
     y = ftorch.mont_mul(ctx, y, tw[:, :, :, None])
-    # stage B: NTT over j1 for each (k2, bt)
-    y = y.permute(0, 2, 1, 3).reshape(nl, n1, n2 * bt)
-    z = _ntt_axis1(ctx, y, inverse, fused)
+    # stage B: NTT over j1 for each (k2, bt): y already has j1 innermost
+    z = _ntt_last(ctx, y.permute(0, 1, 3, 2).reshape(nl, n2 * bt, n1), inverse, fused)
     return z.reshape(nl, n1 * n2, bt)
 
 
@@ -442,7 +447,7 @@ def ntt(ctx: FieldCtx, a, fused: bool = True):
     assert 1 << k == n and k <= ctx.fp.s
     if k == 0:
         return a
-    return _ntt_axis1(ctx, a.reshape(ctx.nl, n, 1), False, fused).reshape(ctx.nl, n)
+    return _ntt_last(ctx, a.reshape(ctx.nl, 1, n), False, fused).reshape(ctx.nl, n)
 
 
 def intt(ctx: FieldCtx, a, fused: bool = True):
@@ -451,4 +456,4 @@ def intt(ctx: FieldCtx, a, fused: bool = True):
     assert 1 << k == n
     if k == 0:
         return a
-    return _ntt_axis1(ctx, a.reshape(ctx.nl, n, 1), True, fused).reshape(ctx.nl, n)
+    return _ntt_last(ctx, a.reshape(ctx.nl, 1, n), True, fused).reshape(ctx.nl, n)

@@ -157,9 +157,9 @@ def test_fused_route_equals_unfused(fn, k, monkeypatch):
     real_norm, real_mm = ntt_mm.digit_mm_norm, ntt_mm.digit_mm
 
     def count(name, real):
-        def wrapped(*a):
+        def wrapped(*a, **kw):
             calls[name] += 1
-            return real(*a)
+            return real(*a, **kw)
         return wrapped
 
     monkeypatch.setattr(ntt_mm, "digit_mm_norm", count("norm", real_norm))
@@ -184,6 +184,14 @@ def test_y_major_is_to_digits_permuted(q, m):
         ftorch.get_ctx(FR).fp, ftorch.to_tensor(limbs, "cpu")))
     assert got.is_contiguous() and got.shape == (fp.n8 + 1, m, q)
     np.testing.assert_array_equal(got.numpy(), want)
+    # the wrappers take either layout
+    tfp = ftorch.get_ctx(FR).fp
+    W8 = torch.tensor(np.random.default_rng(m).integers(
+        -128, 128, (fp.n8 + 1, 4, q)).astype(np.int8))
+    D8 = got.transpose(1, 2).contiguous()
+    assert torch.equal(ntt_mm.digit_mm(W8, got, y_major=True), ntt_mm.digit_mm(W8, D8))
+    assert torch.equal(ntt_mm.digit_mm_norm(tfp, W8, got, y_major=True),
+                       ntt_mm.digit_mm_norm(tfp, W8, D8))
 
 
 @pytest.mark.parametrize("field", [FR, "bls12_381_fr"])
