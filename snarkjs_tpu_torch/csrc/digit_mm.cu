@@ -11,8 +11,7 @@
 // traffic, so it runs on the int8 tensor cores (wgmma, digit_mma.cuh).
 //
 // Design: the columns are independent, so one block takes one 64 x 128 tile
-// and L = 3 neighbouring columns (the widest window whose 192 accumulators
-// still leave two blocks to an SM), runs the shared main loop over their digit
+// and 3 neighbouring columns, runs the shared main loop over their digit
 // pairs and all of y with the sums in registers, and stores L int32 planes.
 // Column c has min(c+1, 2nd-1-c) pairs, so blocks differ 33:1 in work: the
 // grid is ordered from the middle columns outwards, the heavy blocks first.
@@ -25,37 +24,39 @@
 namespace {
 
 using namespace digit_mma;
+// 64 x 128 tiles, 3 live columns: the widest window whose 192 accumulators
+// still leave two blocks to an SM
+using MmTile = Tile<128, 3, 2>;
 
-template <class T>
 __global__ void __launch_bounds__(THREADS)
 digit_mm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
                 const __grid_constant__ CUtensorMap mapW, const __grid_constant__ CUtensorMap mapD,
                 bool tma, int32_t* __restrict__ out, int nd, int r, int q, int m, int tiles_x,
                 int tiles, int groups) {
   extern __shared__ uint8_t dynamic_smem[];
-  const uint32_t ring = ring_base<T>(dynamic_smem);
+  Ring rings = make_rings<MmTile>(dynamic_smem);
   // blockIdx.x = rank * tiles + tile; rank 0 is the middle column group
   const int rank = blockIdx.x / tiles, tile = blockIdx.x % tiles;
   const int off = (rank + 1) >> 1;
   const int group = (rank & 1) ? groups / 2 - off : groups / 2 + off;
-  const int c0 = group * T::L;
-  const int x0 = (tile % tiles_x) * T::TX, k0 = (tile / tiles_x) * TK;
+  const int c0 = group * MmTile::L;
+  const int x0 = (tile % tiles_x) * MmTile::TX, k0 = (tile / tiles_x) * TK;
 
-  int acc[T::L][T::ACC];
+  int acc[MmTile::L][MmTile::ACC];
 #pragma unroll
-  for (int l = 0; l < T::L; l++)
+  for (int l = 0; l < MmTile::L; l++)
 #pragma unroll
-    for (int e = 0; e < T::ACC; e++) acc[l][e] = 0;
+    for (int e = 0; e < MmTile::ACC; e++) acc[l][e] = 0;
   const Operands op{W, DT, &mapW, &mapD, tma};
-  accumulate<T>(acc, op, nd, r, q, m, k0, x0, c0, ring);
+  accumulate<MmTile>(acc, op, nd, r, q, m, k0, x0, c0, rings);
 
   const bool pairs = (m & 1) == 0;    // then (k, x even) is 8-byte aligned
 #pragma unroll
-  for (int l = 0; l < T::L; l++) {
+  for (int l = 0; l < MmTile::L; l++) {
     if (c0 + l >= 2 * nd - 1) continue;
     int32_t* plane = out + (int64_t)(c0 + l) * r * m;
 #pragma unroll
-    for (int e = 0; e < T::ACC; e += 2) {
+    for (int e = 0; e < MmTile::ACC; e += 2) {
       const int k = k0 + acc_row(e), x = x0 + acc_col(e);
       if (k >= r || x >= m) continue;
       int32_t* dst = plane + (int64_t)k * m + x;
@@ -69,20 +70,19 @@ digit_mm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
   }
 }
 
-template <class T>
 int launch(const int8_t* W, const int8_t* DT, int32_t* out, int nd, int r, int q, int m,
            cudaStream_t stream) {
-  const int tiles_x = (m + T::TX - 1) / T::TX;
+  const int tiles_x = (m + MmTile::TX - 1) / MmTile::TX;
   const int64_t tiles = (int64_t)tiles_x * ((r + TK - 1) / TK);
-  const int groups = (2 * nd - 1 + T::L - 1) / T::L;
+  const int groups = (2 * nd - 1 + MmTile::L - 1) / MmTile::L;
   if (tiles * groups > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   CUtensorMap mapW, mapD;
   bool tma;
-  if (!make_maps<T>(&mapW, &mapD, &tma, W, DT, nd, r, q, m)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(digit_mm_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (!make_maps<MmTile>(&mapW, &mapD, &tma, W, DT, nd, r, q, m)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(digit_mm_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, MmTile::SMEM);
   if (err != cudaSuccess) return (int)err;
-  digit_mm_kernel<T><<<(unsigned)(tiles * groups), THREADS, T::SMEM, stream>>>(
+  digit_mm_kernel<<<(unsigned)(tiles * groups), THREADS, MmTile::SMEM, stream>>>(
       W, DT, mapW, mapD, tma, out, nd, r, q, m, tiles_x, (int)tiles, groups);
   return (int)cudaGetLastError();
 }
@@ -94,7 +94,6 @@ extern "C" int snark_digit_mm(const void* W, const void* DT, void* out, int nd, 
                               int m, void* stream) {
   if (nd <= 0 || r <= 0 || q <= 0 || m <= 0 || (reinterpret_cast<uintptr_t>(out) & 7))
     return (int)cudaErrorInvalidValue;
-  return launch<Tile<128, 3, 2>>(static_cast<const int8_t*>(W), static_cast<const int8_t*>(DT),
-                                 static_cast<int32_t*>(out), nd, r, q, m,
-                                 static_cast<cudaStream_t>(stream));
+  return launch(static_cast<const int8_t*>(W), static_cast<const int8_t*>(DT),
+                static_cast<int32_t*>(out), nd, r, q, m, static_cast<cudaStream_t>(stream));
 }

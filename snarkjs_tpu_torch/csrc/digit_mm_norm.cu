@@ -37,6 +37,9 @@
 namespace {
 
 using namespace digit_mma;
+// 64 x 64 tiles, so that the 1024 x 1024 outputs of a 2^20 stage make 256
+// blocks, two to an SM; six live columns, the most the registers hold.
+using NormTile = Tile<64, 6, 2>;
 template <int N8>
 struct NormConsts {
   static constexpr int ND = N8 + 1;        // signed digits per element
@@ -141,12 +144,9 @@ __device__ __forceinline__ void normalize_store(const uint8_t* digs_at, int64_t 
 
 // Scratch of one block: digit c of accumulator e of thread t is byte e % 4 of
 // word (c * (ACC / 4) + e / 4) * THREADS + t.
-template <class T>
-struct Scratch {
-  static constexpr int WORDS = NormConsts<32>::NCAP * (T::ACC / 4) * THREADS;
-};
+constexpr int SCRATCH_WORDS = NormConsts<32>::NCAP * (NormTile::ACC / 4) * THREADS;
 
-template <int N8, class T>
+template <int N8>
 __global__ void __launch_bounds__(THREADS)
 digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT,
                      const __grid_constant__ CUtensorMap mapW,
@@ -154,14 +154,14 @@ digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT
                      int32_t* __restrict__ out, uint32_t* scratch, int r, int q, int m,
                      int tiles_x, int tiles, const NormConsts<N8> K) {
   using C = NormConsts<N8>;
-  constexpr int L = T::L, ACC = T::ACC;
+  constexpr int L = NormTile::L, ACC = NormTile::ACC;
   extern __shared__ uint8_t dynamic_smem[];
-  const uint32_t ring = ring_base<T>(dynamic_smem);
+  Ring rings = make_rings<NormTile>(dynamic_smem);
   const Operands op{W, DT, &mapW, &mapD, tma};
-  uint32_t* mine = scratch + (int64_t)blockIdx.x * Scratch<T>::WORDS + threadIdx.x;
+  uint32_t* mine = scratch + (int64_t)blockIdx.x * SCRATCH_WORDS + threadIdx.x;
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int x0 = (tile % tiles_x) * T::TX, k0 = (tile / tiles_x) * TK;
+    const int x0 = (tile % tiles_x) * NormTile::TX, k0 = (tile / tiles_x) * TK;
     int acc[L][ACC];
 #pragma unroll
     for (int l = 0; l < L; l++)
@@ -170,7 +170,7 @@ digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT
 
     for (int c0 = 0; c0 < C::NCAP; c0 += L) {
       // acc[0] comes in holding the carry out of column c0 - 1
-      accumulate<T>(acc, op, C::ND, r, q, m, k0, x0, c0, ring);
+      accumulate<NormTile>(acc, op, C::ND, r, q, m, k0, x0, c0, rings);
       // 1) retire the columns in order: digit = low byte, the rest carries on
 #pragma unroll
       for (int l = 0; l < L; l++) {
@@ -206,9 +206,8 @@ digit_mm_norm_kernel(const int8_t* __restrict__ W, const int8_t* __restrict__ DT
 
 // Blocks of one launch: one per tile, at most two per SM (two rings fit one
 // SM's shared memory); they walk the tiles.
-template <class T>
 int norm_blocks(int r, int m) {
-  const int64_t tiles = (int64_t)((m + T::TX - 1) / T::TX) * ((r + TK - 1) / TK);
+  const int64_t tiles = (int64_t)((m + NormTile::TX - 1) / NormTile::TX) * ((r + TK - 1) / TK);
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
@@ -217,24 +216,23 @@ int norm_blocks(int r, int m) {
   return (int)(tiles < resident ? tiles : resident);
 }
 
-template <class T>
 int launch(const int8_t* W, const int8_t* DT, int32_t* out, void* scratch, long long scratch_bytes,
            int r, int q, int m, const NormConsts<32>& K, cudaStream_t stream) {
-  const int blocks = norm_blocks<T>(r, m);
-  if (blocks <= 0 || scratch_bytes < (long long)blocks * Scratch<T>::WORDS * 4 ||
+  const int blocks = norm_blocks(r, m);
+  if (blocks <= 0 || scratch_bytes < (long long)blocks * SCRATCH_WORDS * 4 ||
       (reinterpret_cast<uintptr_t>(scratch) & 3))
     return (int)cudaErrorInvalidValue;
-  const int tiles_x = (m + T::TX - 1) / T::TX;
+  const int tiles_x = (m + NormTile::TX - 1) / NormTile::TX;
   const int64_t tiles = (int64_t)tiles_x * ((r + TK - 1) / TK);
   if (tiles > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
   CUtensorMap mapW, mapD;
   bool tma;
-  if (!make_maps<T>(&mapW, &mapD, &tma, W, DT, NormConsts<32>::ND, r, q, m))
+  if (!make_maps<NormTile>(&mapW, &mapD, &tma, W, DT, NormConsts<32>::ND, r, q, m))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(digit_mm_norm_kernel<32, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  cudaError_t err = cudaFuncSetAttribute(digit_mm_norm_kernel<32>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, NormTile::SMEM);
   if (err != cudaSuccess) return (int)err;
-  digit_mm_norm_kernel<32, T><<<blocks, THREADS, T::SMEM, stream>>>(
+  digit_mm_norm_kernel<32><<<blocks, THREADS, NormTile::SMEM, stream>>>(
       W, DT, mapW, mapD, tma, out, static_cast<uint32_t*>(scratch), r, q, m, tiles_x, (int)tiles,
       K);
   return (int)cudaGetLastError();
@@ -242,12 +240,8 @@ int launch(const int8_t* W, const int8_t* DT, int32_t* out, void* scratch, long 
 
 }  // namespace
 
-// 64 x 64 tiles, so that the 1024 x 1024 outputs of a 2^20 stage make 256
-// blocks, two to an SM; six live columns, the most the registers hold.
-using NormTile = Tile<64, 6, 2>;
-
 extern "C" long long snark_digit_mm_norm_scratch_bytes(int r, int m) {
-  return (long long)norm_blocks<NormTile>(r, m) * Scratch<NormTile>::WORDS * 4;
+  return (long long)norm_blocks(r, m) * SCRATCH_WORDS * 4;
 }
 
 // W: (nd, r, q) int8; DT: (nd, m, q) int8; out: (nl, r, m) int32; scratch:
@@ -263,7 +257,7 @@ extern "C" int snark_digit_mm_norm(const void* W, const void* DT, void* out, voi
     return (int)cudaErrorInvalidValue;
   C K;
   std::memcpy(&K, consts, sizeof(C));
-  return launch<NormTile>(static_cast<const int8_t*>(W), static_cast<const int8_t*>(DT),
+  return launch(static_cast<const int8_t*>(W), static_cast<const int8_t*>(DT),
                           static_cast<int32_t*>(out), scratch, scratch_bytes, r, q, m, K,
                           static_cast<cudaStream_t>(stream));
 }

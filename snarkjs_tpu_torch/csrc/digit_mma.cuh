@@ -9,9 +9,9 @@
 // with wgmma.mma_async m64nTXk32 s32.s8.s8, both operands from shared memory,
 // the int32 sums in registers of one warpgroup (128 threads).
 //
-// What bounds the digit products on this card is not the instruction but the
-// operand traffic: with one column at a time no tile is used twice, and a
-// 64 x 128 tile would stream 1089 * (64 + 128) * q bytes from L2.  So the loop
+// With one column at a time no tile would be used twice: a 64 x 128 tile
+// would bring 1089 * (64 + 128) * q bytes through L2 into shared memory, whose
+// bandwidth the wgmma operand reads already take most of.  So the loop
 // slides a window over the digits: step i loads W8[i] and D8T[c0 - i] and
 // multiplies W8[i] with the L tiles D8T[c0 - i .. c0 + L - 1 - i], of which
 // L - 1 are still in the ring from the steps before.  One W and one D tile
@@ -220,13 +220,20 @@ struct Operands {
   bool tma;
 };
 
+// A block's rings: their shared-memory address (aligned to 1024), the stage
+// the next step takes in each, and the parity of those stages' barrier phases.
+struct Ring {
+  uint32_t base;
+  int w, d;
+  uint32_t pw, pd;
+};
+
 // acc[l] += column c0 + l of the tile at (k0, x0), l = 0 .. L-1.  Columns past
-// 2nd - 2 get nothing.  `ring` is the shared-memory address of the ring,
-// aligned to 1024.  Every thread of the block calls it, converged.
+// 2nd - 2 get nothing.  Every thread of the block calls it, converged.
 template <class T>
 __device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const Operands& op, int nd,
                                            int r, int q, int m, int k0, int x0, int c0,
-                                           uint32_t ring) {
+                                           Ring& rings) {
   constexpr int L = T::L, P = T::P, SW = T::SW, SD = T::SD;
   // steps i_first .. i_last; those below 0 only bring in the D tiles that the
   // first products of columns c0+1 .. c0+L-1 need
@@ -234,20 +241,12 @@ __device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const Opera
   const int i_last = min(nd - 1, c0 + L - 1);
   if (i_last < i_first) return;
   const int steps = (i_last - i_first + 1) * ((q + KY - 1) / KY);
+  const uint32_t ring = rings.base;
   const uint64_t zero = make_desc(ring + T::ZERO, 0);
   const uint32_t barW = ring + T::BARS, barD = barW + 8 * SW;
 
   __syncthreads();                    // the rings are free: every earlier product is done
-  if (op.tma) {
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int s = 0; s < SW + SD; s++) mbar_init(barW + 8 * s, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-  }
-
-  int li = i_first, ly = 0, lw = 0, ld = 0;   // the loader's digit, y chunk and stages
+  int li = i_first, ly = 0, lw = rings.w, ld = rings.d;   // the loader's digit, y chunk, stages
   auto load_step = [&]() {
     const int j = c0 - li;
     const bool has_d = j >= 0 && j < nd;
@@ -278,8 +277,8 @@ __device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const Opera
 #pragma unroll
   for (int p = 0; p < P; p++)
     if (p < steps) load_step();
-  int ci = i_first, cw = 0, cd = 0;   // the products' digit and stages
-  uint32_t pw = 0, pd = 0;            // ... and the parity of their barriers' phases
+  int ci = i_first, cw = rings.w, cd = rings.d;   // the products' digit and stages
+  uint32_t pw = rings.pw, pd = rings.pd;          // ... and their barriers' phase parity
   for (int g = 0; g < steps; g++) {
     if (!op.tma) fence_proxy_async();  // tiles stored by threads, for the tensor cores
     __syncthreads();                  // step g-1's products are done, in every warp
@@ -316,22 +315,29 @@ __device__ __forceinline__ void accumulate(int (&acc)[T::L][T::ACC], const Opera
     if (++cw == SW) { cw = 0; pw ^= 1; }
     if (++cd == SD) { cd = 0; pd ^= 1; }
   }
+  rings = Ring{ring, cw, cd, pw, pd};
 }
 
-// The ring's shared-memory address, aligned up to 1024 inside the dynamic
-// allocation of T::SMEM bytes; zeroes the zero tile behind the ring.  Every
+// The block's rings inside its dynamic allocation of T::SMEM bytes: aligns
+// them up to 1024, zeroes the zero tile behind them and arms the stages'
+// mbarriers (one arrival each: the thread that asks for the tile).  Every
 // thread of the block calls it once, before the first `accumulate`.
 template <class T>
-__device__ __forceinline__ uint32_t ring_base(const void* dynamic_smem) {
+__device__ __forceinline__ Ring make_rings(const void* dynamic_smem) {
   const uint32_t ring = ((uint32_t)__cvta_generic_to_shared(dynamic_smem) + 1023u) & ~1023u;
   if (threadIdx.x < 64)
     asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(ring + T::ZERO +
                                                                      16 * threadIdx.x),
                  "r"(0)
                  : "memory");
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < T::SW + T::SD; s++) mbar_init(ring + T::BARS + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   fence_proxy_async();
   __syncthreads();
-  return ring;
+  return Ring{ring, 0, 0, 0u, 0u};
 }
 
 // Where accumulator e of a thread sits in the 64 x TX tile (the wgmma D
@@ -345,7 +351,7 @@ __device__ __forceinline__ int acc_col(int e) {
 }
 
 // Tensor map of digit planes (nd, rows, q) int8 with boxes of (1, box_rows,
-// 128 y) in the 128-byte swizzle.  False when the driver refuses.
+// 128 y) in the 128-byte swizzle.  False when cuTensorMapEncodeTiled fails.
 inline bool encode_planes(CUtensorMap* map, const void* base, int nd, int rows, int q,
                           int box_rows) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -372,8 +378,8 @@ inline bool encode_planes(CUtensorMap* map, const void* base, int nd, int rows, 
 }
 
 // Both maps of a launch; `tma` is false (and the maps unused) where q or a
-// base does not allow them.  Returns false when the driver refuses a map it
-// should take.
+// base does not allow them.  Returns false when a map that should encode
+// does not.
 template <class T>
 inline bool make_maps(CUtensorMap* mapW, CUtensorMap* mapD, bool* tma, const void* W,
                       const void* DT, int nd, int r, int q, int m) {

@@ -1,7 +1,7 @@
 """Digit-matmul NTT over Fr (port of snarkjs_tpu/ntt/ntt_mxu.py).
 
 A size-2^k NTT is split four-step style into DFT-matrix products of size
-<= 1024 (`_ntt_axis1`).  Field elements enter each product as balanced
+<= 1024 (`_ntt_last`).  Field elements enter each product as balanced
 signed 8-bit digits, so an r x r product over Fp becomes nd x nd int8
 digit-pair products accumulated into 2*nd - 1 int32 columns, then normalized
 back to canonical 16-bit limbs (`_normalize_cols`: the carry pass
