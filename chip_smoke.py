@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Drive snarkjs_tpu_torch on one NVIDIA card: build, check, prove, time.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py --kscan    # K-scan and K-field alone (kscan_quick)
 
 Phases (any failure exits non-zero before the last line):
   1. the card's name and power limit;
-  2. build csrc/*.cu with nvcc (one process per source, in parallel); the SASS
-     of K-mm and K-mm-norm must hold tensor-core instructions (IGMMA / IMMA);
+  2. build csrc/*.cu with nvcc (one process per source, in parallel); print
+     each K-scan instantiation's registers and spills (ptxas) and the SASS
+     instructions of one step by class; the SASS of K-mm and K-mm-norm must
+     hold tensor-core instructions (IGMMA / IMMA);
   3. each kernel against its plain PyTorch version on the card, limb for limb:
      K-field (all four ops; bn254 Fr/Fq, bls12-381 Fq; 2^20 elements with the
-     edge values and to_mont of limbs in [p, R)), K-scan (bn254 G1/G2, cw=8,
-     2^12 points), K-mm and K-mm-norm (1024 x 1024 x 1024, r = 4 with
+     edge values and to_mont of limbs in [p, R)), K-scan (every instantiation:
+     bn254 and bls12-381, G1 and G2, cw=8, 2^12 points; bn254 G1 also on a
+     lane count that is no multiple of 128 and with C = 1), K-mm and
+     K-mm-norm (1024 x 1024 x 1024, r = 4 with
      m = 2^16, m = 4 with r = 1024, and a shape that is no multiple of 4;
      K-mm-norm on bn254 Fr and bls12-381 Fr);
   4. the stored tiny bn128 fixtures proved through `prove_files`, byte-equal
@@ -26,7 +31,8 @@ Phases (any failure exits non-zero before the last line):
   6. where the warm prove's time goes (QAP and each MSM alone, one prove
      under torch.profiler), warm proves paired over the two NTT routes, then
      times (CUDA events) of each kernel, its plain version and, for K-mm, one
-     torch._int_mm on the Toeplitz-expanded digit matrix;
+     torch._int_mm on the Toeplitz-expanded digit matrix; K-field also its
+     device time a launch under torch.profiler;
   7. the full-width PLONK prove: the 200,000-constraint squaring chain
      (domain n = 2^18, 4n = 2^20), its key written by `_write_plonk_zkey` on
      the card with an SRS tiled from the 512 multiples of G1; launch counts
@@ -44,7 +50,7 @@ Phases (any failure exits non-zero before the last line):
      PyTorch), launch counts set to 0 just before and read just after, each
      result equal limb for limb to the default route's; then K-mm against its
      plain version at every shape that path gave it;
- 10. the kernels line, then the contract line.
+ 10. K-scan's registers and spills, the kernels line, then the contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
 `ntt_mm._mm_stage`; K-mm is driven by phase 9.  The paired timings send a
@@ -57,6 +63,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -230,15 +237,15 @@ def rand_field(fp, n, dev, gen, wide=False):
     return x
 
 
-def point_tables(cv):
-    """512 multiples of G1 and 64 of G2 (i+1)*G, Montgomery limbs."""
+def point_tables(cv, n1=512, n2=64):
+    """n1 multiples of G1 and n2 of G2, (i+1)*G, Montgomery limbs."""
     fq = cv.fq
     g1, acc = [], cv.g1
-    for _ in range(512):
+    for _ in range(n1):
         g1.append(acc)
         acc = hc.g1_add(cv, acc, cv.g1)
     g2, acc = [], cv.g2
-    for _ in range(64):
+    for _ in range(n2):
         g2.append(acc)
         acc = hc.g2_add(cv, acc, cv.g2)
     m = lambda vs: ftorch.np_from_ints(fq, [fq.to_mont(v) for v in vs])
@@ -315,23 +322,7 @@ def phase_kernels_small(dev, gen, tables):
             check(e == 0, f"K-field {op} {name} differs from plain ({e})")
             errs["field_ops"] = max(errs["field_ops"], e)
         log(f"  K-field {name}: add sub mont_mul neg to_mont == plain at 2^20")
-    cv = hc.BN254
-    (gx, gy), (g2x, g2y) = tables
-    n = 1 << 12
-    scal = rand_field(cv.fr, n, dev, gen)
-    scal8 = torch.stack([scal & 0xFF, (scal >> 8) & 0xFF], dim=1).reshape(32, n)
-    for group, px, py in (("g1", gx, gy), ("g2", g2x, g2y)):
-        m = msm_gpu.get_msm(cv.name, group, cw=8)
-        t = lambda a: tuple(t(x) for x in a) if isinstance(a, tuple) \
-            else ftorch.to_tensor(tiled(a, n), dev)
-        xyT = m.scan_input(t(px), t(py), torch.zeros(n, dtype=torch.bool, device=dev),
-                           scal8, lanes=512)
-        got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
-        want = msm_gpu.scan_plain(cv.fq, m.b, m.ext, xyT)
-        e = max_abs_err(got, want)
-        check(e == 0, f"K-scan {group} cw=8 differs from plain ({e})")
-        errs["msm_scan"] = max(errs["msm_scan"], e)
-        log(f"  K-scan {group} cw=8 2^12 points {tuple(xyT.shape)} == plain")
+    errs["msm_scan"] = scan_small_cases(dev, gen, tables)
     errs["digit_mm_norm"] = 0
     for name in ("bn254_fr", "bls12_381_fr"):
         fp = ftorch.get_ctx(name).fp
@@ -351,6 +342,137 @@ def phase_kernels_small(dev, gen, tables):
         log(f"  K-mm-norm {name}: 1024^3, (4,4,2^16), (1024,1024,4), (70,33,50) "
             "== plain, limb for limb" + ("; K-mm too" if name == "bn254_fr" else ""))
     return errs
+
+
+SCAN_INSTANCES = {(8, 1): "bn254 G1", (8, 2): "bn254 G2", (12, 1): "bls12-381 G1",
+                  (12, 2): "bls12-381 G2"}
+
+
+def scan_small_cases(dev, gen, tables):
+    """K-scan against its plain version, word for word, on bn254 and
+    bls12-381, G1 and G2 (every instantiation): cw = 8, 2^12 points over 512
+    lanes; bn254 G1 also over 200 lanes (no multiple of a block's 128) and
+    with 300 points on 300 lanes (C = 1, one ragged block).  Returns the
+    largest difference (0)."""
+    err = 0
+    bls = point_tables(hc.BLS12_381, 64, 16)
+    for cv, ((gx, gy), (g2x, g2y)) in ((hc.BN254, tables), (hc.BLS12_381, bls)):
+        n = 1 << 12
+        scal = rand_field(cv.fr, n, dev, gen)
+        scal8 = torch.stack([scal & 0xFF, (scal >> 8) & 0xFF], dim=1).reshape(-1, n)
+        for group, px, py in (("g1", gx, gy), ("g2", g2x, g2y)):
+            m = msm_gpu.get_msm(cv.name, group, cw=8)
+            cases = [(n, 512)]
+            if cv is hc.BN254 and group == "g1":
+                cases += [(n, 200), (300, 300)]
+            for npts, lanes in cases:
+                t = lambda a: tuple(t(x) for x in a) if isinstance(a, tuple) \
+                    else ftorch.to_tensor(tiled(a, npts), dev)
+                xyT = m.scan_input(t(px), t(py),
+                                   torch.zeros(npts, dtype=torch.bool, device=dev),
+                                   scal8[:, :npts].contiguous(), lanes=lanes)
+                got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
+                want = msm_gpu.scan_plain(cv.fq, m.b, m.ext, xyT)
+                e = max_abs_err(got, want)
+                check(e == 0, f"K-scan {cv.name} {group} {tuple(xyT.shape)} differs from "
+                              f"plain ({e})")
+                err = max(err, e)
+                log(f"  K-scan {cv.name} {group} cw=8 {npts} points {tuple(xyT.shape)} == plain")
+    return err
+
+
+def _scan_instance(symbol):
+    m = re.search(r"scan_kernelILi(\d+)ELi(\d+)E", symbol)
+    return SCAN_INSTANCES.get((int(m.group(1)), int(m.group(2)))) if m else None
+
+
+def scan_registers():
+    """Registers and spill bytes of each K-scan instantiation, from the ptxas
+    report the build keeps in _build/msm_scan.log."""
+    with open(os.path.join(_build.OUT, "msm_scan.log")) as f:
+        text = f.read()
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Function properties for|Compiling entry function) '?([^' ]+)", line)
+        if m:
+            cur = _scan_instance(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    check(set(out) == set(SCAN_INSTANCES.values()),
+          f"the ptxas report lacks a K-scan instantiation: {sorted(out)}")
+    return out
+
+
+def _cuobjdump():
+    nvcc = _build._nvcc()
+    return os.path.join(os.path.dirname(nvcc), "cuobjdump") if os.sep in nvcc else "cuobjdump"
+
+
+def scan_sass_counts():
+    """SASS instructions of one K-scan step in each instantiation: the body
+    of the kernel's outermost loop (the loop over C), by class.  G2 is
+    straight-line there; G1's 3b ladder (fmul_small) is an inner loop whose
+    body counts once, though it runs up to four trips a step."""
+    sass = subprocess.run([_cuobjdump(), "-sass", _build.lib_path("msm_scan")],
+                          capture_output=True, text=True)
+    check(sass.returncode == 0, f"cuobjdump failed on msm_scan: {sass.stderr[-500:]}")
+    out = {}
+    for part in sass.stdout.split("Function : ")[1:]:
+        name = _scan_instance(part.split(None, 1)[0])
+        if name is None:
+            continue
+        ops, at, branches = [], {}, []   # at: instruction address -> index
+        for line in part.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);",
+                         line)
+            if m:
+                at[int(m.group(1), 16)] = len(ops)
+                t = re.search(r"\b0x([0-9a-f]+)\b", m.group(3))
+                if m.group(2).startswith("BRA") and t:
+                    branches.append((int(t.group(1), 16), len(ops)))
+                ops.append(m.group(2))
+        loops = [(at[t], i) for t, i in branches if t in at and at[t] <= i]
+        check(loops, f"no loop found in the SASS of K-scan {name}")
+        lo, hi = max(loops, key=lambda l: l[1] - l[0])
+        body = ops[lo:hi + 1]
+        imad = [op for op in body if op.startswith("IMAD")]
+        moves = sum(op.startswith("IMAD.MOV") for op in imad)
+        iadd = sum(op.startswith("IADD3") for op in body)
+        out[name] = {"total": len(body), "imad": len(imad) - moves, "imad_mov": moves,
+                     "iadd3": iadd, "other": len(body) - len(imad) - iadd}
+    check(set(out) == set(SCAN_INSTANCES.values()),
+          f"the SASS lacks a K-scan instantiation: {sorted(out)}")
+    return out
+
+
+def device_ms_per_launch(fn, iters, match):
+    """Device time per launch of the kernels whose name holds `match`, from
+    torch.profiler over `iters` calls of fn (after one warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for evt in prof.key_averages():
+        if match in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            if t is None:
+                t = getattr(evt, "self_cuda_time_total", 0)
+            total += t / 1e3
+            count += evt.count
+    return (total / count, count) if count and total > 0 else (None, count)
 
 
 def mm_inputs(dev, gen, name="bn254_fr", k=10, r=1024, q=1024, m=1024):
@@ -627,14 +749,17 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
                          ("add", ftorch.add, (a, b)), ("sub", ftorch.sub, (a, b)),
                          ("neg", ftorch.neg, (a,))):
         ms = cuda_ms(lambda: fn(ctx, *args), 20)
+        dev_ms, _ = device_ms_per_launch(lambda: fn(ctx, *args), 20, "field_kernel")
         with ftorch.plain_versions():
             plain_ms = cuda_ms(lambda: fn(ctx, *args), 2)
         nbytes = (len(args) + 1) * ctx.nl * 4 * (1 << 20)
         wide = mont_mul_imads(n32) * (1 << 20) if op == "mont_mul" else 0
         bms, by = bound(nbytes, wide, rate32) if wide else (
             nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
-        ops[op] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
-        log(f"  K-field {op} (16, 2^20): {ms:.4f} ms  plain {plain_ms:.2f} ms  "
+        ops[op] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by}
+        log(f"  K-field {op} (16, 2^20): {ms:.4f} ms (CUDA events over 20 launches), "
+            f"device {dev_ms} ms a launch (torch.profiler)  plain {plain_ms:.2f} ms  "
             f"bound {bms:.4f} ms ({by})")
     entries["field_ops"] = dict(ops["mont_mul"], ops=ops)
 
@@ -953,16 +1078,69 @@ def phase_plonk_times(dev, zk, wit, b, prove_ms):
 def sass_tensor_core_counts():
     """IGMMA (wgmma) and IMMA (mma.sync) instructions in the SASS of the two
     digit-matmul libraries; fails unless each holds some."""
-    nvcc = _build._nvcc()
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump") if os.sep in nvcc \
-        else "cuobjdump"
     for src in ("digit_mm", "digit_mm_norm"):
-        sass = subprocess.run([cuobjdump, "-sass", _build.lib_path(src)],
+        sass = subprocess.run([_cuobjdump(), "-sass", _build.lib_path(src)],
                               capture_output=True, text=True)
         check(sass.returncode == 0, f"cuobjdump failed on {src}: {sass.stderr[-500:]}")
         igmma, imma = sass.stdout.count("IGMMA"), sass.stdout.count("IMMA.")
         log(f"  {src}: SASS holds {igmma} IGMMA and {imma} IMMA instructions")
         check(igmma + imma > 0, f"{src} holds no tensor-core instruction")
+
+
+# the shapes the proves give K-scan (nw, C, nin, RL) on an H100, by name
+MAIN_SCAN_SHAPES = (("plonk g1", "g1", 33), ("groth16 g1", "g1", 74),
+                    ("groth16 h", "g1", 128), ("groth16 g2", "g2", 74))
+
+
+def kscan_quick(dev, gen, rate32):
+    """`--kscan`: K-scan and K-field alone (they share field.cuh).  Every
+    K-scan instantiation against its plain version, then K-scan's time and
+    bound at the four shapes the proves give it, on sorted inputs built from
+    random window digits over tiled multiples of G (each run also checked
+    against the plain version on its last two steps), then K-field's
+    mont_mul at (16, 2^20).  Needs no prove, so it runs in a few minutes."""
+    cv = hc.BN254
+    tables = point_tables(cv)
+    log("[K-scan vs plain]")
+    scan_small_cases(dev, gen, tables)
+    log("[K-scan at the main-path shapes]")
+    (gx, gy), (g2x, g2y) = tables
+    rows = []
+    for what, group, C in MAIN_SCAN_SHAPES:
+        m = msm_gpu.get_msm(cv.name, group, cw=16)
+        n = C * 8192
+        t = lambda a: tuple(t(x) for x in a) if isinstance(a, tuple) \
+            else ftorch.to_tensor(tiled(a, n), dev)
+        px, py = (t(gx), t(gy)) if group == "g1" else (t(g2x), t(g2y))
+        xyT = m.scan_input(px, py, torch.zeros(n, dtype=torch.bool, device=dev),
+                           rand_field(cv.fr, n, dev, gen), lanes=8192)
+        del px, py
+        got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
+        tail = xyT[:, -2:].contiguous()
+        e = max_abs_err(got[:, -2:], msm_gpu.scan_plain(cv.fq, m.b, m.ext, tail))
+        check(e == 0, f"K-scan {what} {tuple(xyT.shape)}: last two steps differ from plain ({e})")
+        ms = min(cuda_ms(lambda: msm_gpu.scan(cv.fq, m.b, m.ext, xyT), 3) for _ in range(2))
+        nw, C, nin, RL = xyT.shape
+        bms, by = bound(xyT.numel() * 4 + got.numel() * 4,
+                        nw * C * RL * madd_products(m.b, m.ext) * mont_mul_imads(cv.fq.nl // 2),
+                        rate32)
+        rows.append({"what": what, "shape": list(xyT.shape), "ms": ms, "bound_ms": bms,
+                     "bound_by": by, "max_abs_err_last_two_steps": e})
+        log(f"  K-scan {what} {tuple(xyT.shape)}: {ms:.3f} ms  bound {bms:.3f} ms ({by}), "
+            f"{ms / bms:.2f}x; last two steps == plain")
+        del xyT, got, tail
+    ctx = ftorch.get_ctx("bn254_fr")
+    a = rand_field(ctx.fp, 1 << 20, dev, gen)
+    b = rand_field(ctx.fp, 1 << 20, dev, gen)
+    with ftorch.plain_versions():
+        want = ftorch.mont_mul(ctx, a, b)
+    check(max_abs_err(ftorch.mont_mul(ctx, a, b), want) == 0, "K-field mont_mul differs")
+    ms = cuda_ms(lambda: ftorch.mont_mul(ctx, a, b), 20)
+    dev_ms, cnt = device_ms_per_launch(lambda: ftorch.mont_mul(ctx, a, b), 20, "field_kernel")
+    log(f"  K-field mont_mul (16, 2^20) == plain: {ms:.4f} ms (CUDA events over 20 launches), "
+        f"device {dev_ms} ms a launch (torch.profiler, {cnt} launches)")
+    print(json.dumps({"kscan": rows, "field_mont_mul_ms": ms,
+                      "field_mont_mul_device_ms": dev_ms}))
 
 
 def main():
@@ -978,17 +1156,24 @@ def main():
         f"cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
+    quick = sys.argv[1:] == ["--kscan"]
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    reports = _build.build_all(("field_ops", "msm_scan") if quick else _build.SOURCES)
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for src, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
-    sass_tensor_core_counts()
+    log(f"  K-scan registers and spills: {json.dumps(scan_registers())}")
+    log(f"  K-scan SASS of one step: {json.dumps(scan_sass_counts())}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
+    if quick:
+        kscan_quick(dev, gen, imad_per_s())
+        log(f"total {time.perf_counter() - t0:.1f} s")
+        return 0
+    sass_tensor_core_counts()
     tables = point_tables(hc.BN254)
     log("[kernels vs plain]")
     errs = phase_kernels_small(dev, gen, tables)
@@ -1050,6 +1235,8 @@ def main():
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
+    kernels[1]["registers"] = scan_registers()
+    log(f"K-scan registers and spills (ptxas): {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

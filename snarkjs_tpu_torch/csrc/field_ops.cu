@@ -6,9 +6,10 @@
 //
 // What bounds it on an H100: bytes.  mont_mul reads two and writes one
 // (NL, B) array of 16-bit limbs in u32 words (12*NL bytes per element) and
-// does 2*N^2 + N 32x32->64-bit products (N = NL/2); at NL = 16 that is
-// 192 bytes against 136 wide products, under the card's ratio of integer
-// multiply rate to memory rate.  add/sub/neg are pure streams.
+// issues 4*N^2 + N 32-bit multiply instructions (N = NL/2, field.cuh:fmul);
+// at NL = 16 that is 192 bytes against 264 multiplies, under the card's
+// ratio of integer multiply rate to memory rate.  add/sub/neg are pure
+// streams.
 //
 // Design: one thread per element, the whole element in registers as N
 // 32-bit words (field.cuh), limb-major boundary layout so each warp's loads
@@ -33,7 +34,9 @@ __global__ void field_kernel(const uint32_t* __restrict__ a, const uint32_t* __r
       r = fneg<N>(x, f);
     } else {
       Fe<N> y = load_limbs16<N>(b, B, j);
-      if (OP == MONT_MUL) r = fmul<N>(x, y, f);
+      // b < p and a < R (to_mont hands limbs in [p, R) as a): fmul scans
+      // its second operand word by word and may take that one wide
+      if (OP == MONT_MUL) r = fmul<N>(y, x, f);
       if (OP == ADD) r = fadd<N>(x, y, f);
       if (OP == SUB) r = fsub<N>(x, y, f);
     }

@@ -7,60 +7,103 @@
 // (nw, C, 3*N*EXT, RL): after step c the lane's running point
 // sum_{c' >= c} (+-P_c') in projective (X, Y, Z), packed the same way.
 // Each step is one RCB complete mixed add (rcb.rcb_madd, 11M + 14a; 9M when
-// 3b is a small integer), with y
-// negated first on lanes whose key has the sign bit set.
+// 3b is a small integer), with y negated first on lanes whose key has the
+// sign bit set.
 //
 // Where the TPU walked C as a sequential grid axis and carried the running
 // point in VMEM scratch, blocks here run in no order: each thread owns one
 // (window, lane) and loops over C itself, keeping the point in registers.
-// All windows of an MSM go into one launch, so nw * RL threads (16 * 8192 at
-// the 2^20 Groth16 shape) fill the 132 SMs; RL is the lane count chosen by
-// the glue.
+// A block is LT = 128 neighbouring lanes of one window; all windows of an
+// MSM go into one launch (nw * ceil(RL / LT) blocks), and the glue picks RL
+// so that they fill whole waves of resident blocks (snark_msm_scan_blocks_per_sm).
 //
 // What bounds it on an H100: integer multiply throughput.  A bn254 G1 step
 // is 9 Montgomery products of 8 x 32-bit words (the two 3b products are an
-// add ladder, fmul_small; ~2.4k 32-bit multiply instructions) against 28
-// words of traffic; a G2 step is 33 base-field products.  Registers bound the occupancy:
-// the running point, the affine input and the Montgomery temporaries of
-// G2 (Fq2, 2 x N words per coordinate) exceed what the SM can hold for many
-// threads, and bls12-381 G2 (N = 12) spills to local memory (see the
-// ptxas report in _build/msm_scan.log).
+// add ladder, fmul_small) at 4N^2 + N = 264 32-bit multiplies each (ptxas
+// pairs each lo and hi into one IMAD.WIDE), against 28 words of traffic; a G2
+// step is 33 products.  The design:
+// - field products as carry chains (field.cuh), so the instruction stream is
+//   mostly the multiplies themselves;
+// - the inputs of step c - 1 are copied into shared memory (cp.async, one
+//   group a step, double-buffered) while step c computes, and x2, y2 and the
+//   key are read from there where the formula uses them: the loads leave the
+//   critical path and take no registers across the step.  Each thread copies
+//   and reads only its own lane's column, so no block barrier is needed;
+// - the mixed add evaluates its products in an order that keeps at most
+//   seven coordinates live (rcb_madd below), rows are addressed by a running
+//   pointer (advance), and __launch_bounds__ is set per instantiation, so
+//   that the bn254 instantiations fit their registers without spilling.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "field.cuh"
 
 namespace {
 
+constexpr int LT = 128;  // lanes (threads) per block
+
 template <int N>
 struct ScanP {
   FieldP<N> f;
-  Fe2<N> b3;     // 3*b in Montgomery form (G1 uses b3.c0)
-  int b3_small;  // G1 only: 3*b as a small integer (0 = use b3.c0)
+  Fe2<N> b3;     // 3*b in Montgomery form (G2)
+  int b3_small;  // G1: 3*b as a small integer (9 on bn254, 12 on bls12-381)
 };
 
+// Resident blocks an SM is asked to hold: the register budget of each
+// instantiation (65536 / (LT * blocks) registers a thread at most, and 255).
+template <int N, int EXT>
+struct MinBlocks {
+  static constexpr int value = EXT == 1 ? (N == 8 ? 3 : 2) : 2;
+};
+
+// p + d, as a value the compiler cannot see through: the rows of a step are
+// walked with a running pointer, so no loop-invariant row offset (one per
+// input and output row) is hoisted out of the step loop into a register.
+template <typename P>
+__device__ __forceinline__ P advance(P p, int64_t d) {
+  p += d;
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// Reads of the staged inputs are volatile: each use of x2 or y2 loads it
+// again from shared memory instead of holding it in registers in between.
 template <int N>
-__device__ __forceinline__ void load_e(Fe<N>& x, const uint32_t* p, int64_t s) {
-  x = load_words<N>(p, s, 0);
+__device__ __forceinline__ void load_e(Fe<N>& x, const volatile uint32_t* p, int s) {
+#pragma unroll
+  for (int i = 0; i < N; i++) x.v[i] = p[i * s];
 }
 template <int N>
-__device__ __forceinline__ void load_e(Fe2<N>& x, const uint32_t* p, int64_t s) {
-  x.c0 = load_words<N>(p, s, 0);
-  x.c1 = load_words<N>(p + N * s, s, 0);
+__device__ __forceinline__ void load_e(Fe2<N>& x, const volatile uint32_t* p, int s) {
+  load_e<N>(x.c0, p, s);
+  load_e<N>(x.c1, p + N * s, s);
 }
 template <int N>
-__device__ __forceinline__ void store_e(uint32_t* p, int64_t s, const Fe<N>& x) {
-  store_words<N>(p, s, 0, x);
+__device__ __forceinline__ void store_e(uint32_t* p, int s, const Fe<N>& x) {
+#pragma unroll
+  for (int i = 0; i < N; i++) p[i * s] = x.v[i];
 }
 template <int N>
-__device__ __forceinline__ void store_e(uint32_t* p, int64_t s, const Fe2<N>& x) {
-  store_words<N>(p, s, 0, x.c0);
-  store_words<N>(p + N * s, s, 0, x.c1);
+__device__ __forceinline__ void store_e(uint32_t* p, int s, const Fe2<N>& x) {
+  store_e<N>(p, s, x.c0);
+  store_e<N>(p + N * s, s, x.c1);
+}
+
+// fn on each base-field coordinate of x, in order
+template <int N, typename F>
+__device__ __forceinline__ void for_each_fe(const Fe<N>& x, F fn) {
+  fn(x);
+}
+template <int N, typename F>
+__device__ __forceinline__ void for_each_fe(const Fe2<N>& x, F fn) {
+  fn(x.c0);
+  fn(x.c1);
 }
 
 template <int N>
 __device__ __forceinline__ Fe<N> mul_b3(const Fe<N>& a, const ScanP<N>& P) {
-  if (P.b3_small > 0) return fmul_small<N>(a, P.b3_small, P.f);
-  return fmul<N>(a, P.b3.c0, P.f);
+  return fmul_small<N>(a, P.b3_small, P.f);
 }
 template <int N>
 __device__ __forceinline__ Fe2<N> mul_b3(const Fe2<N>& a, const ScanP<N>& P) {
@@ -80,53 +123,146 @@ __device__ __forceinline__ void set_zero_one(Fe2<N>& z, Fe2<N>& o, const FieldP<
   o.c1 = fzero<N>();
 }
 
-// P + (x2, y2) with Z2 = 1 (rcb.rcb_madd and _rcb_tail, same operation order)
+// One lane's staged step in shared memory: rows x2 | y2 | key, LT apart.
 template <int N, typename T>
-__device__ __forceinline__ void rcb_madd(T& X1, T& Y1, T& Z1, const T& x2, const T& y2,
+struct Staged {
+  static constexpr int W = sizeof(T) / 4;
+  uint32_t* s;
+  __device__ __forceinline__ T x() const {
+    T v;
+    load_e<N>(v, s, LT);
+    return v;
+  }
+  __device__ __forceinline__ T y() const {
+    T v;
+    load_e<N>(v, s + W * LT, LT);
+    return v;
+  }
+  __device__ __forceinline__ uint32_t key() const {
+    return *(const volatile uint32_t*)(s + 2 * W * LT);
+  }
+  // y2 <- -y2 (fsub(0, y2)) in place, on lanes whose key has the sign bit
+  __device__ __forceinline__ void apply_sign(const FieldP<N>& f) const {
+    if (key() & 1u) store_e<N>(s + W * LT, LT, fneg<N>(y(), f));
+  }
+};
+
+// P + (x2, y2) with Z2 = 1: the operations of rcb.rcb_madd and _rcb_tail,
+// each on the same operands (all canonical, so the words are the same in
+// any order), in an order that frees X1, Y1, Z1 as early as possible and
+// keeps at most seven coordinates live in the tail.
+template <int N, typename T>
+__device__ __forceinline__ void rcb_madd(T& X, T& Y, T& Z, const Staged<N, T>& in,
                                          const ScanP<N>& P) {
   const FieldP<N>& f = P.f;
-  T t0 = fmul<N>(X1, x2, f);
-  T t1 = fmul<N>(Y1, y2, f);
-  T m = fsub<N>(fsub<N>(fmul<N>(fadd<N>(X1, Y1, f), fadd<N>(x2, y2, f), f), t0, f), t1, f);
-  T s = fadd<N>(fmul<N>(y2, Z1, f), Y1, f);
-  T u = fadd<N>(fmul<N>(x2, Z1, f), X1, f);
-  T w = mul_b3<N>(Z1, P);
-  T q = fadd<N>(fadd<N>(t0, t0, f), t0, f);
-  T tm = fsub<N>(t1, w, f);
-  T tp = fadd<N>(t1, w, f);
-  T B = mul_b3<N>(u, P);
-  X1 = fsub<N>(fmul<N>(m, tm, f), fmul<N>(s, B, f), f);
-  Y1 = fadd<N>(fmul<N>(tp, tm, f), fmul<N>(B, q, f), f);
-  Z1 = fadd<N>(fmul<N>(s, tp, f), fmul<N>(m, q, f), f);
+  const T xy = fadd<N>(X, Y, f);
+  const T t0 = fmul<N>(X, in.x(), f);
+  const T u = fadd<N>(fmul<N>(in.x(), Z, f), X, f);
+  const T t1 = fmul<N>(Y, in.y(), f);
+  const T s = fadd<N>(fmul<N>(in.y(), Z, f), Y, f);
+  const T m = fsub<N>(fsub<N>(fmul<N>(xy, fadd<N>(in.x(), in.y(), f), f), t0, f), t1, f);
+  const T w = mul_b3<N>(Z, P);
+  const T tm = fsub<N>(t1, w, f);
+  const T tp = fadd<N>(t1, w, f);
+  const T q = fadd<N>(fadd<N>(t0, t0, f), t0, f);
+  const T B = mul_b3<N>(u, P);
+  X = fmul<N>(m, tm, f);
+  Z = fmul<N>(m, q, f);
+  X = fsub<N>(X, fmul<N>(s, B, f), f);
+  Z = fadd<N>(fmul<N>(s, tp, f), Z, f);
+  Y = fmul<N>(tp, tm, f);
+  Y = fadd<N>(Y, fmul<N>(B, q, f), f);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem) : "memory");
 }
 
 template <int N, int EXT, typename T>
-__global__ void __launch_bounds__(128) scan_kernel(const uint32_t* __restrict__ xy,
-                                                   uint32_t* __restrict__ out, int nw, int C,
-                                                   int RL, ScanP<N> P) {
+__global__ void __launch_bounds__(LT, MinBlocks<N, EXT>::value)
+    scan_kernel(const uint32_t* __restrict__ xy, uint32_t* __restrict__ out, int C, int RL,
+                int tiles, ScanP<N> P) {
   constexpr int W = N * EXT;  // words per coordinate
   constexpr int NIN = 2 * W + 1;
   constexpr int NOUT = 3 * W;
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= (int64_t)nw * RL) return;
-  const int64_t w = t / RL, lane = t % RL;
-  T X, Y, Z, zero;
+  extern __shared__ uint32_t stage[];  // [2][NIN][LT]
+  const int w = blockIdx.x / tiles;
+  const int lane = (blockIdx.x % tiles) * LT + threadIdx.x;
+  if (lane >= RL) return;
+  const uint32_t* src = xy + (int64_t)w * C * NIN * RL + lane;
+  uint32_t* dst = out + (int64_t)w * C * NOUT * RL + lane;
+  uint32_t* col = stage + threadIdx.x;
+
+  // one commit group a step: this lane's NIN words of step c into buffer b
+  auto fetch = [&](int c, int b) {
+    const uint32_t* g = src + (int64_t)c * NIN * RL;
+#pragma unroll
+    for (int r = 0; r < NIN; r++) {
+      cp_async4(col + (b * NIN + r) * LT, g);
+      g = advance(g, RL);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  auto put = [&](uint32_t*& o, const Fe<N>& x) {
+#pragma unroll
+    for (int i = 0; i < N; i++) {
+      *o = x.v[i];
+      o = advance(o, RL);
+    }
+  };
+
+  T X, Y, Z;
   set_zero_one<N>(X, Y, P.f);
   Z = X;
-  zero = X;
+  fetch(C - 1, 0);
   for (int c = C - 1; c >= 0; c--) {
-    const uint32_t* in = xy + ((w * C + c) * NIN) * (int64_t)RL + lane;
-    T x2, y2;
-    load_e<N>(x2, in, RL);
-    load_e<N>(y2, in + (int64_t)W * RL, RL);
-    const uint32_t key = in[(int64_t)(NIN - 1) * RL];
-    if (key & 1u) y2 = fsub<N>(zero, y2, P.f);
-    rcb_madd<N, T>(X, Y, Z, x2, y2, P);
-    uint32_t* o = out + ((w * C + c) * NOUT) * (int64_t)RL + lane;
-    store_e<N>(o, RL, X);
-    store_e<N>(o + (int64_t)W * RL, RL, Y);
-    store_e<N>(o + (int64_t)2 * W * RL, RL, Z);
+    const int b = (C - 1 - c) & 1;
+    if (c > 0) {
+      fetch(c - 1, b ^ 1);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    const Staged<N, T> in{col + b * NIN * LT};
+    in.apply_sign(P.f);
+    rcb_madd<N, T>(X, Y, Z, in, P);
+    uint32_t* o = dst + (int64_t)c * NOUT * RL;
+    for_each_fe(X, [&](const Fe<N>& x) { put(o, x); });
+    for_each_fe(Y, [&](const Fe<N>& x) { put(o, x); });
+    for_each_fe(Z, [&](const Fe<N>& x) { put(o, x); });
   }
+}
+
+template <int N, int EXT>
+constexpr int smem_bytes() {
+  return 2 * (2 * N * EXT + 1) * LT * 4;
+}
+
+// The kernel of one instantiation, with its dynamic shared memory allowed
+// (bls12-381 G2 needs more than the default 48 KB).
+template <int N, int EXT>
+cudaError_t kernel_of(const void** fn) {
+  using T = typename std::conditional<EXT == 1, Fe<N>, Fe2<N>>::type;
+  auto k = scan_kernel<N, EXT, T>;
+  *fn = reinterpret_cast<const void*>(k);
+  static const cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<N, EXT>());
+  return err;
+}
+
+template <int N, int EXT>
+cudaError_t launch_ext(const void* xy, void* out, int nw, int C, int RL, const ScanP<N>& P,
+                       cudaStream_t stream) {
+  using T = typename std::conditional<EXT == 1, Fe<N>, Fe2<N>>::type;
+  const void* fn;
+  cudaError_t err = kernel_of<N, EXT>(&fn);
+  if (err != cudaSuccess) return err;
+  const int tiles = (RL + LT - 1) / LT;
+  const unsigned blocks = (unsigned)((int64_t)nw * tiles);
+  scan_kernel<N, EXT, T><<<blocks, LT, smem_bytes<N, EXT>(), stream>>>(
+      static_cast<const uint32_t*>(xy), static_cast<uint32_t*>(out), C, RL, tiles, P);
+  return cudaGetLastError();
 }
 
 template <int N>
@@ -142,18 +278,19 @@ cudaError_t launch(int ext, const void* xy, void* out, int nw, int C, int RL, co
   }
   P.f.np0 = np0;
   P.b3_small = b3_small;
-  const int threads = 128;
-  const int64_t total = (int64_t)nw * RL;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  auto in = static_cast<const uint32_t*>(xy);
-  auto o = static_cast<uint32_t*>(out);
-  if (ext == 1)
-    scan_kernel<N, 1, Fe<N>><<<blocks, threads, 0, stream>>>(in, o, nw, C, RL, P);
-  else if (ext == 2)
-    scan_kernel<N, 2, Fe2<N>><<<blocks, threads, 0, stream>>>(in, o, nw, C, RL, P);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  if (ext == 1) return launch_ext<N, 1>(xy, out, nw, C, RL, P, stream);
+  if (ext == 2) return launch_ext<N, 2>(xy, out, nw, C, RL, P, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int N, int EXT>
+int blocks_per_sm() {
+  const void* fn;
+  int nb = 0;
+  cudaError_t err = kernel_of<N, EXT>(&fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fn, LT, smem_bytes<N, EXT>());
+  return err == cudaSuccess ? nb : -(int)err;
 }
 
 }  // namespace
@@ -168,4 +305,12 @@ extern "C" int snark_msm_scan(int n32, int ext, const void* xy, void* out, int n
   if (n32 == 12)
     return (int)launch<12>(ext, xy, out, nw, C, RL, p32, np0, one32, b3_words, b3_small, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of LT lanes that one SM holds at once for an instantiation, or
+// minus the cudaError_t when the query fails.
+extern "C" int snark_msm_scan_blocks_per_sm(int n32, int ext) {
+  if (n32 == 8) return ext == 1 ? blocks_per_sm<8, 1>() : blocks_per_sm<8, 2>();
+  if (n32 == 12) return ext == 1 ? blocks_per_sm<12, 1>() : blocks_per_sm<12, 2>();
+  return -(int)cudaErrorInvalidValue;
 }

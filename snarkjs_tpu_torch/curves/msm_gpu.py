@@ -17,7 +17,8 @@ the sort key's low bit):
 All windows share one sort call, one K-scan launch and one phase 2; the
 window partials come back to the host and are combined on bigints
 (`_finish`).  The lane count RL is a parameter of `_program`: on the card it
-is picked so that nw * RL threads fill the SMs (`_lanes`).
+is picked so that nw * RL threads fill whole waves of the blocks K-scan keeps
+resident (`_lanes`).
 
 `LAUNCHES` counts K-scan launches; `scan_plain` is its plain twin.
 """
@@ -35,8 +36,8 @@ from ..fields import fcuda, ftorch
 from ..fields.params import LIMB_BITS, FieldParams
 from . import rcb
 
-LN = 128                 # lanes on the CPU (tests)
-TARGET_THREADS = 1 << 17  # K-scan threads per launch on the card
+LN = 128                 # lanes on the CPU (tests); K-scan's lanes a block (LT)
+TARGET_THREADS = 1 << 17  # K-scan threads per launch on the card, within 2x
 LAUNCHES = [0]
 
 
@@ -193,6 +194,8 @@ def _lib():
         + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_int, ctypes.c_void_p])
+    lib.snark_msm_scan_blocks_per_sm.restype = ctypes.c_int
+    lib.snark_msm_scan_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -218,8 +221,10 @@ def scan(fq: FieldParams, b, ext: int, xyT):
     xyT = xyT.contiguous()
     out = torch.empty((nw, C, 3 * nl * ext // 2, RL), dtype=torch.int32,
                       device=xyT.device)
+    b3_small = 3 * b if ext == 1 else 0
+    if ext == 1 and not 0 < b3_small < 64:
+        raise ValueError("K-scan G1 takes 3b as a small integer (an add ladder)")
     p32, np0, one32 = fcuda.consts(fq)
-    b3_small = 3 * b if ext == 1 and 0 < 3 * b < 64 else 0
     err = _lib().snark_msm_scan(
         nl // 2, ext, xyT.data_ptr(), out.data_ptr(), nw, C, RL,
         ctypes.cast(p32, ctypes.c_void_p), np0, ctypes.cast(one32, ctypes.c_void_p),
@@ -267,15 +272,43 @@ def _tree_sum(f, P, b3):
     return P
 
 
-def _lanes(nw: int, n: int, device) -> int:
+def _lanes(nw: int, n: int, device, n32: int, ext: int) -> int:
     """Scan width.  On the CPU about sqrt(n) lanes, at most 128 (the plain
-    phase 2 costs lanes x windows adds); on the card enough that nw * RL
-    threads fill it, but no wider than the points need."""
+    phase 2 costs lanes x windows adds); on the card `_lanes_for` the lanes
+    that the K-scan instantiation for (n32, ext) keeps resident."""
     if device.type != "cuda":
         return min(LN, max(8, 1 << ((n - 1).bit_length() + 1) // 2))
-    rl = max(LN, TARGET_THREADS // nw)
-    rl = 1 << (rl.bit_length() - 1)
-    return max(LN, min(rl, 1 << max(0, (n - 1).bit_length())))
+    return _lanes_for(nw, n, _resident_lanes(n32, ext, device.index))
+
+
+def _lanes_for(nw: int, n: int, resident: int) -> int:
+    """The power-of-two RL within a factor 2 of TARGET_THREADS / nw (no wider
+    than the points need, no narrower than a block) whose nw * RL threads
+    fill the largest share of their last wave of `resident` threads; ties go
+    to TARGET_THREADS / nw, then to the narrower (phase 2 grows with RL)."""
+    cap = max(LN, 1 << max(0, (n - 1).bit_length()))
+    mid = max(LN, 1 << ((TARGET_THREADS // nw).bit_length() - 1))
+    best, best_fill = None, -1.0
+    for rl in (mid, mid // 2, mid * 2):
+        rl = min(cap, max(LN, rl))
+        waves = nw * rl / resident
+        fill = waves / -(-waves // 1)
+        if fill > best_fill:
+            best, best_fill = rl, fill
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_lanes(n32: int, ext: int, index) -> int:
+    """Threads of one K-scan instantiation that the card holds at once: its
+    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    x SMs x LN."""
+    with torch.cuda.device(index):
+        nb = _lib().snark_msm_scan_blocks_per_sm(n32, ext)
+        if nb <= 0:
+            raise RuntimeError(f"K-scan occupancy query failed (cudaError {-nb})")
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return nb * sms * LN
 
 
 class GpuMSM:
@@ -372,7 +405,7 @@ class GpuMSM:
         digits (for holding the kernel against its plain twin)."""
         n = scalars.shape[-1]
         nw = self.n_windows(scalars.shape[0])
-        RL = lanes or _lanes(nw, n, scalars.device)
+        RL = lanes or _lanes(nw, n, scalars.device, self.fq.nl // 2, self.ext)
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
         keys = self._keys(pinf, scalars)
@@ -386,7 +419,7 @@ class GpuMSM:
         n = scalars.shape[-1]
         device = scalars.device
         nw = self.n_windows(scalars.shape[0])
-        RL = _lanes(nw, n, device)
+        RL = _lanes(nw, n, device, self.fq.nl // 2, self.ext)
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
         flatW = self._program(C, RL, nw, device)(px, py, pinf, scalars)

@@ -222,15 +222,18 @@ def test_k_mm_norm_matches_plain_on_card(card, field, r, q, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("curve", ["BN254", "BLS12_381"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_k_scan_matches_plain_on_card(card, group):
+@pytest.mark.parametrize("n,lanes", [(512, 128), (512, 200), (300, 300)])
+def test_k_scan_matches_plain_on_card(card, curve, group, n, lanes):
+    """Every instantiation (N = 8, 12 words; G1, G2), on whole blocks of 128
+    lanes, on a lane count that is no multiple of 128, and with C = 1."""
     from snarkjs_tpu_torch.curves import host_curve as hc
     from snarkjs_tpu_torch.curves import msm_gpu
 
-    cv = hc.BN254
+    cv = getattr(hc, curve)
     fq = cv.fq
     m = msm_gpu.get_msm(cv.name, group, cw=8)
-    n = 512
     pts, acc = [], cv.g1 if group == "g1" else cv.g2
     add = hc.g1_add if group == "g1" else hc.g2_add
     for _ in range(n):
@@ -246,6 +249,9 @@ def test_k_scan_matches_plain_on_card(card, group):
     rng = np.random.default_rng(9)
     scal = torch.from_numpy(rng.integers(0, 256, (4, n)).astype(np.int32)).to(card)
     xyT = m.scan_input(px, py, torch.zeros(n, dtype=torch.bool, device=card),
-                       scal, lanes=128)
-    assert torch.equal(msm_gpu.scan(fq, m.b, m.ext, xyT),
-                       msm_gpu.scan_plain(fq, m.b, m.ext, xyT))
+                       scal, lanes=lanes)
+    assert xyT.shape[1] == -(-n // lanes) and xyT.shape[3] == lanes
+    before = msm_gpu.LAUNCHES[0]
+    got = msm_gpu.scan(fq, m.b, m.ext, xyT)
+    assert msm_gpu.LAUNCHES[0] == before + 1
+    assert torch.equal(got, msm_gpu.scan_plain(fq, m.b, m.ext, xyT))
