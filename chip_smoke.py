@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive snarkjs_tpu_torch on one NVIDIA card: build, check, prove, time.
 
-    python3 chip_smoke.py            # everything below
-    python3 chip_smoke.py --kscan    # K-scan and K-field alone (kscan_quick)
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line):
   1. the card's name and power limit;
   2. build csrc/*.cu with nvcc (one process per source, in parallel); print
-     each K-scan instantiation's registers and spills (ptxas) and the SASS
+     each K-scan instantiation's registers and local memory (from the loaded
+     library) and spills (the ptxas report of that library) and the SASS
      instructions of one step by class; the SASS of K-mm and K-mm-norm must
      hold tensor-core instructions (IGMMA / IMMA);
   3. each kernel against its plain PyTorch version on the card, limb for limb:
@@ -50,7 +50,8 @@ Phases (any failure exits non-zero before the last line):
      PyTorch), launch counts set to 0 just before and read just after, each
      result equal limb for limb to the default route's; then K-mm against its
      plain version at every shape that path gave it;
- 10. K-scan's registers and spills, the kernels line, then the contract line.
+ 10. K-scan's registers, local memory and spills, the kernels line, then the
+     contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
 `ntt_mm._mm_stage`; K-mm is driven by phase 9.  The paired timings send a
@@ -387,9 +388,13 @@ def _scan_instance(symbol):
 
 
 def scan_registers():
-    """Registers and spill bytes of each K-scan instantiation, from the ptxas
-    report the build keeps in _build/msm_scan.log."""
-    with open(os.path.join(_build.OUT, "msm_scan.log")) as f:
+    """Registers and local memory a thread of each K-scan instantiation, read
+    from the loaded library (cudaFuncGetAttributes), and its spill bytes from
+    the ptxas report that the build wrote under the same digest; the two
+    register counts must agree."""
+    path = _build.log_path("msm_scan")
+    check(os.path.exists(path), f"no ptxas report of the loaded K-scan library ({path})")
+    with open(path) as f:
         text = f.read()
     out, cur = {}, None
     for line in text.splitlines():
@@ -408,6 +413,12 @@ def scan_registers():
             out.setdefault(cur, {})["registers"] = int(m.group(1))
     check(set(out) == set(SCAN_INSTANCES.values()),
           f"the ptxas report lacks a K-scan instantiation: {sorted(out)}")
+    for (n32, ext), name in SCAN_INSTANCES.items():
+        attrs = msm_gpu.kernel_attributes(n32, ext)
+        check(attrs["registers"] == out[name]["registers"],
+              f"K-scan {name}: the loaded library has {attrs['registers']} registers, "
+              f"its ptxas report {out[name]['registers']}")
+        out[name]["local_bytes"] = attrs["local_bytes"]
     return out
 
 
@@ -608,14 +619,13 @@ def mont_mul_imads(n32):
     return 4 * n32 * n32 + n32
 
 
-def madd_products(b, ext):
-    """Full Montgomery products in one K-scan mixed add (msm_scan.cu:rcb_madd):
-    11 over the base field, less the two 3b products when G1's 3b is a small
-    integer (msm_gpu.scan's b3_small: an add ladder, no multiplies); three Fq
-    products per Fq2 product for G2."""
-    if ext == 2:
-        return 33
-    return 9 if 0 < 3 * b < 64 else 11
+def madd_products(ext):
+    """Full Montgomery products over the base field in one K-scan mixed add
+    (msm_scan.cu:rcb_madd, the operations of rcb.rcb_madd): 11 products and
+    two products by 3b.  On G1 3b is a small integer and those two are an add
+    ladder (fmul_small), no multiplies; on G2 3b is a full Fq2 element, so
+    all 13 are Fq2 products of three Fq products each."""
+    return 11 if ext == 1 else 3 * 13
 
 
 def bound(nbytes, ops, rate):
@@ -696,7 +706,7 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs):
     errs["msm_scan"] = max(errs["msm_scan"], e)
     nw, C, nin, RL = shape
     nbytes = xyT.numel() * 4 + got.numel() * 4
-    wide = nw * C * RL * madd_products(m.b, m.ext) * mont_mul_imads(cv.fq.nl // 2)
+    wide = nw * C * RL * madd_products(m.ext) * mont_mul_imads(cv.fq.nl // 2)
     bms, by = bound(nbytes, wide, rate32)
     log(f"  K-scan {group} {shape} x{seen[shape]} ({path}) == plain: {ms:.3f} ms  "
         f"plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by})")
@@ -1087,62 +1097,6 @@ def sass_tensor_core_counts():
         check(igmma + imma > 0, f"{src} holds no tensor-core instruction")
 
 
-# the shapes the proves give K-scan (nw, C, nin, RL) on an H100, by name
-MAIN_SCAN_SHAPES = (("plonk g1", "g1", 33), ("groth16 g1", "g1", 74),
-                    ("groth16 h", "g1", 128), ("groth16 g2", "g2", 74))
-
-
-def kscan_quick(dev, gen, rate32):
-    """`--kscan`: K-scan and K-field alone (they share field.cuh).  Every
-    K-scan instantiation against its plain version, then K-scan's time and
-    bound at the four shapes the proves give it, on sorted inputs built from
-    random window digits over tiled multiples of G (each run also checked
-    against the plain version on its last two steps), then K-field's
-    mont_mul at (16, 2^20).  Needs no prove, so it runs in a few minutes."""
-    cv = hc.BN254
-    tables = point_tables(cv)
-    log("[K-scan vs plain]")
-    scan_small_cases(dev, gen, tables)
-    log("[K-scan at the main-path shapes]")
-    (gx, gy), (g2x, g2y) = tables
-    rows = []
-    for what, group, C in MAIN_SCAN_SHAPES:
-        m = msm_gpu.get_msm(cv.name, group, cw=16)
-        n = C * 8192
-        t = lambda a: tuple(t(x) for x in a) if isinstance(a, tuple) \
-            else ftorch.to_tensor(tiled(a, n), dev)
-        px, py = (t(gx), t(gy)) if group == "g1" else (t(g2x), t(g2y))
-        xyT = m.scan_input(px, py, torch.zeros(n, dtype=torch.bool, device=dev),
-                           rand_field(cv.fr, n, dev, gen), lanes=8192)
-        del px, py
-        got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
-        tail = xyT[:, -2:].contiguous()
-        e = max_abs_err(got[:, -2:], msm_gpu.scan_plain(cv.fq, m.b, m.ext, tail))
-        check(e == 0, f"K-scan {what} {tuple(xyT.shape)}: last two steps differ from plain ({e})")
-        ms = min(cuda_ms(lambda: msm_gpu.scan(cv.fq, m.b, m.ext, xyT), 3) for _ in range(2))
-        nw, C, nin, RL = xyT.shape
-        bms, by = bound(xyT.numel() * 4 + got.numel() * 4,
-                        nw * C * RL * madd_products(m.b, m.ext) * mont_mul_imads(cv.fq.nl // 2),
-                        rate32)
-        rows.append({"what": what, "shape": list(xyT.shape), "ms": ms, "bound_ms": bms,
-                     "bound_by": by, "max_abs_err_last_two_steps": e})
-        log(f"  K-scan {what} {tuple(xyT.shape)}: {ms:.3f} ms  bound {bms:.3f} ms ({by}), "
-            f"{ms / bms:.2f}x; last two steps == plain")
-        del xyT, got, tail
-    ctx = ftorch.get_ctx("bn254_fr")
-    a = rand_field(ctx.fp, 1 << 20, dev, gen)
-    b = rand_field(ctx.fp, 1 << 20, dev, gen)
-    with ftorch.plain_versions():
-        want = ftorch.mont_mul(ctx, a, b)
-    check(max_abs_err(ftorch.mont_mul(ctx, a, b), want) == 0, "K-field mont_mul differs")
-    ms = cuda_ms(lambda: ftorch.mont_mul(ctx, a, b), 20)
-    dev_ms, cnt = device_ms_per_launch(lambda: ftorch.mont_mul(ctx, a, b), 20, "field_kernel")
-    log(f"  K-field mont_mul (16, 2^20) == plain: {ms:.4f} ms (CUDA events over 20 launches), "
-        f"device {dev_ms} ms a launch (torch.profiler, {cnt} launches)")
-    print(json.dumps({"kscan": rows, "field_mont_mul_ms": ms,
-                      "field_mont_mul_device_ms": dev_ms}))
-
-
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1156,23 +1110,21 @@ def main():
         f"cuda {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
-    quick = sys.argv[1:] == ["--kscan"]
     t0 = time.perf_counter()
-    reports = _build.build_all(("field_ops", "msm_scan") if quick else _build.SOURCES)
+    reports = _build.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for src, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
-    log(f"  K-scan registers and spills: {json.dumps(scan_registers())}")
+    regs = scan_registers()
+    log(f"  K-scan registers, local memory and spills: {json.dumps(regs)}")
+    check(all(regs[k]["spill_stores"] == 0 for k in ("bn254 G1", "bn254 G2")),
+          "a bn254 K-scan instantiation spills")
     log(f"  K-scan SASS of one step: {json.dumps(scan_sass_counts())}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
-    if quick:
-        kscan_quick(dev, gen, imad_per_s())
-        log(f"total {time.perf_counter() - t0:.1f} s")
-        return 0
     sass_tensor_core_counts()
     tables = point_tables(hc.BN254)
     log("[kernels vs plain]")
@@ -1235,8 +1187,8 @@ def main():
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
-    kernels[1]["registers"] = scan_registers()
-    log(f"K-scan registers and spills (ptxas): {json.dumps(kernels[1]['registers'])}")
+    kernels[1]["registers"] = regs
+    log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

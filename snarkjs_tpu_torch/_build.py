@@ -46,6 +46,11 @@ def lib_path(name: str) -> str:
     return os.path.join(OUT, f"lib{name}-{_digest(name)}.so")
 
 
+def log_path(name: str) -> str:
+    """The ptxas report of the library at lib_path(name)."""
+    return lib_path(name)[:-3] + ".log"
+
+
 def _command(name: str, out: str) -> list[str]:
     return [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -56,7 +61,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every missing library in parallel; returns ptxas reports.
 
     The report of each source (registers, spills, shared memory per kernel)
-    is also written beside its library as `<name>.log`.
+    is also written beside its library, under the same digest (`log_path`).
     """
     os.makedirs(OUT, exist_ok=True)
     procs = {}
@@ -73,7 +78,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
     for name, (proc, tmp, path) in procs.items():
         text, _ = proc.communicate()
         reports[name] = text
-        with open(os.path.join(OUT, f"{name}.log"), "w") as f:
+        with open(log_path(name), "w") as f:
             f.write(text)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{text[-4000:]}")

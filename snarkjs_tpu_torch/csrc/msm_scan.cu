@@ -6,22 +6,21 @@
 // payload) and a key word mag*2 + sign; NIN = 2*N*EXT + 1.  Output is
 // (nw, C, 3*N*EXT, RL): after step c the lane's running point
 // sum_{c' >= c} (+-P_c') in projective (X, Y, Z), packed the same way.
-// Each step is one RCB complete mixed add (rcb.rcb_madd, 11M + 14a; 9M when
-// 3b is a small integer), with y negated first on lanes whose key has the
-// sign bit set.
+// Each step is one RCB complete mixed add (rcb.rcb_madd: 11 products, two
+// products by 3b and 14 adds), with y negated first on lanes whose key has
+// the sign bit set.
 //
 // Where the TPU walked C as a sequential grid axis and carried the running
 // point in VMEM scratch, blocks here run in no order: each thread owns one
 // (window, lane) and loops over C itself, keeping the point in registers.
 // A block is LT = 128 neighbouring lanes of one window; all windows of an
-// MSM go into one launch (nw * ceil(RL / LT) blocks), and the glue picks RL
-// so that they fill whole waves of resident blocks (snark_msm_scan_blocks_per_sm).
+// MSM go into one launch (nw * ceil(RL / LT) blocks).
 //
 // What bounds it on an H100: integer multiply throughput.  A bn254 G1 step
-// is 9 Montgomery products of 8 x 32-bit words (the two 3b products are an
-// add ladder, fmul_small) at 4N^2 + N = 264 32-bit multiplies each (ptxas
-// pairs each lo and hi into one IMAD.WIDE), against 28 words of traffic; a G2
-// step is 33 products.  The design:
+// is 11 Montgomery products of 8 x 32-bit words (the two by 3b are an add
+// ladder, fmul_small) at 4N^2 + N = 264 32-bit multiplies each (ptxas pairs
+// each lo and hi into one IMAD.WIDE), against 28 words of traffic; a G2 step
+// is 13 Fq2 products (3b is a full Fq2 element there), 39 over Fq.  The design:
 // - field products as carry chains (field.cuh), so the instruction stream is
 //   mostly the multiplies themselves;
 // - the inputs of step c - 1 are copied into shared memory (cp.async, one
@@ -239,24 +238,14 @@ constexpr int smem_bytes() {
   return 2 * (2 * N * EXT + 1) * LT * 4;
 }
 
-// The kernel of one instantiation, with its dynamic shared memory allowed
-// (bls12-381 G2 needs more than the default 48 KB).
-template <int N, int EXT>
-cudaError_t kernel_of(const void** fn) {
-  using T = typename std::conditional<EXT == 1, Fe<N>, Fe2<N>>::type;
-  auto k = scan_kernel<N, EXT, T>;
-  *fn = reinterpret_cast<const void*>(k);
-  static const cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<N, EXT>());
-  return err;
-}
-
 template <int N, int EXT>
 cudaError_t launch_ext(const void* xy, void* out, int nw, int C, int RL, const ScanP<N>& P,
                        cudaStream_t stream) {
   using T = typename std::conditional<EXT == 1, Fe<N>, Fe2<N>>::type;
-  const void* fn;
-  cudaError_t err = kernel_of<N, EXT>(&fn);
+  // set on every launch, for the current device's context: bls12-381 G2
+  // needs more dynamic shared memory than the default 48 KB
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan_kernel<N, EXT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<N, EXT>());
   if (err != cudaSuccess) return err;
   const int tiles = (RL + LT - 1) / LT;
   const unsigned blocks = (unsigned)((int64_t)nw * tiles);
@@ -284,13 +273,13 @@ cudaError_t launch(int ext, const void* xy, void* out, int nw, int C, int RL, co
 }
 
 template <int N, int EXT>
-int blocks_per_sm() {
-  const void* fn;
-  int nb = 0;
-  cudaError_t err = kernel_of<N, EXT>(&fn);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fn, LT, smem_bytes<N, EXT>());
-  return err == cudaSuccess ? nb : -(int)err;
+cudaError_t attributes(int* regs, int* local_bytes) {
+  using T = typename std::conditional<EXT == 1, Fe<N>, Fe2<N>>::type;
+  cudaFuncAttributes a{};
+  const cudaError_t err = cudaFuncGetAttributes(&a, scan_kernel<N, EXT, T>);
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return err;
 }
 
 }  // namespace
@@ -307,10 +296,12 @@ extern "C" int snark_msm_scan(int n32, int ext, const void* xy, void* out, int n
   return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of LT lanes that one SM holds at once for an instantiation, or
-// minus the cudaError_t when the query fails.
-extern "C" int snark_msm_scan_blocks_per_sm(int n32, int ext) {
-  if (n32 == 8) return ext == 1 ? blocks_per_sm<8, 1>() : blocks_per_sm<8, 2>();
-  if (n32 == 12) return ext == 1 ? blocks_per_sm<12, 1>() : blocks_per_sm<12, 2>();
-  return -(int)cudaErrorInvalidValue;
+// Registers a thread and local memory a thread (spills and stack) of one
+// instantiation, as the loaded module holds it.  Returns the cudaError_t.
+extern "C" int snark_msm_scan_attributes(int n32, int ext, int* regs, int* local_bytes) {
+  if (n32 == 8) return (int)(ext == 1 ? attributes<8, 1>(regs, local_bytes)
+                                      : attributes<8, 2>(regs, local_bytes));
+  if (n32 == 12) return (int)(ext == 1 ? attributes<12, 1>(regs, local_bytes)
+                                       : attributes<12, 2>(regs, local_bytes));
+  return (int)cudaErrorInvalidValue;
 }

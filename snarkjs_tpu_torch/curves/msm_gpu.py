@@ -17,8 +17,7 @@ the sort key's low bit):
 All windows share one sort call, one K-scan launch and one phase 2; the
 window partials come back to the host and are combined on bigints
 (`_finish`).  The lane count RL is a parameter of `_program`: on the card it
-is picked so that nw * RL threads fill whole waves of the blocks K-scan keeps
-resident (`_lanes`).
+is picked so that nw * RL threads fill the SMs (`_lanes`).
 
 `LAUNCHES` counts K-scan launches; `scan_plain` is its plain twin.
 """
@@ -36,8 +35,8 @@ from ..fields import fcuda, ftorch
 from ..fields.params import LIMB_BITS, FieldParams
 from . import rcb
 
-LN = 128                 # lanes on the CPU (tests); K-scan's lanes a block (LT)
-TARGET_THREADS = 1 << 17  # K-scan threads per launch on the card, within 2x
+LN = 128                 # lanes on the CPU (tests)
+TARGET_THREADS = 1 << 17  # K-scan threads per launch on the card
 LAUNCHES = [0]
 
 
@@ -194,8 +193,8 @@ def _lib():
         + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
            ctypes.c_int, ctypes.c_void_p])
-    lib.snark_msm_scan_blocks_per_sm.restype = ctypes.c_int
-    lib.snark_msm_scan_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.snark_msm_scan_attributes.restype = ctypes.c_int
+    lib.snark_msm_scan_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
     return lib
 
 
@@ -235,6 +234,15 @@ def scan(fq: FieldParams, b, ext: int, xyT):
     return out
 
 
+def kernel_attributes(n32: int, ext: int) -> dict:
+    """Registers and local memory (spills and stack) a thread of the K-scan
+    instantiation for (n32, ext), as the loaded library holds it."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_lib().snark_msm_scan_attributes(
+        n32, ext, ctypes.byref(regs), ctypes.byref(local)), "K-scan attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
 # ------------------------------------------------------------ phase 2
 
 def _map(fn, *Ps):
@@ -272,43 +280,15 @@ def _tree_sum(f, P, b3):
     return P
 
 
-def _lanes(nw: int, n: int, device, n32: int, ext: int) -> int:
+def _lanes(nw: int, n: int, device) -> int:
     """Scan width.  On the CPU about sqrt(n) lanes, at most 128 (the plain
-    phase 2 costs lanes x windows adds); on the card `_lanes_for` the lanes
-    that the K-scan instantiation for (n32, ext) keeps resident."""
+    phase 2 costs lanes x windows adds); on the card enough that nw * RL
+    threads fill it, but no wider than the points need."""
     if device.type != "cuda":
         return min(LN, max(8, 1 << ((n - 1).bit_length() + 1) // 2))
-    return _lanes_for(nw, n, _resident_lanes(n32, ext, device.index))
-
-
-def _lanes_for(nw: int, n: int, resident: int) -> int:
-    """The power-of-two RL within a factor 2 of TARGET_THREADS / nw (no wider
-    than the points need, no narrower than a block) whose nw * RL threads
-    fill the largest share of their last wave of `resident` threads; ties go
-    to TARGET_THREADS / nw, then to the narrower (phase 2 grows with RL)."""
-    cap = max(LN, 1 << max(0, (n - 1).bit_length()))
-    mid = max(LN, 1 << ((TARGET_THREADS // nw).bit_length() - 1))
-    best, best_fill = None, -1.0
-    for rl in (mid, mid // 2, mid * 2):
-        rl = min(cap, max(LN, rl))
-        waves = nw * rl / resident
-        fill = waves / -(-waves // 1)
-        if fill > best_fill:
-            best, best_fill = rl, fill
-    return best
-
-
-@functools.lru_cache(maxsize=None)
-def _resident_lanes(n32: int, ext: int, index) -> int:
-    """Threads of one K-scan instantiation that the card holds at once: its
-    resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    x SMs x LN."""
-    with torch.cuda.device(index):
-        nb = _lib().snark_msm_scan_blocks_per_sm(n32, ext)
-        if nb <= 0:
-            raise RuntimeError(f"K-scan occupancy query failed (cudaError {-nb})")
-        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return nb * sms * LN
+    rl = max(LN, TARGET_THREADS // nw)
+    rl = 1 << (rl.bit_length() - 1)
+    return max(LN, min(rl, 1 << max(0, (n - 1).bit_length())))
 
 
 class GpuMSM:
@@ -405,7 +385,7 @@ class GpuMSM:
         digits (for holding the kernel against its plain twin)."""
         n = scalars.shape[-1]
         nw = self.n_windows(scalars.shape[0])
-        RL = lanes or _lanes(nw, n, scalars.device, self.fq.nl // 2, self.ext)
+        RL = lanes or _lanes(nw, n, scalars.device)
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
         keys = self._keys(pinf, scalars)
@@ -419,7 +399,7 @@ class GpuMSM:
         n = scalars.shape[-1]
         device = scalars.device
         nw = self.n_windows(scalars.shape[0])
-        RL = _lanes(nw, n, device, self.fq.nl // 2, self.ext)
+        RL = _lanes(nw, n, device)
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
         flatW = self._program(C, RL, nw, device)(px, py, pinf, scalars)

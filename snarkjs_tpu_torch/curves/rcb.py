@@ -24,7 +24,8 @@ from __future__ import annotations
 
 
 def rcb_add(f, P, Q, b3):
-    """Complete projective add P + Q (both projective).  12M + 19a."""
+    """Complete projective add P + Q (both projective).  12M, two products
+    by b3, 19a."""
     X1, Y1, Z1 = P
     X2, Y2, Z2 = Q
     t0 = f.mul(X1, X2)
@@ -37,7 +38,8 @@ def rcb_add(f, P, Q, b3):
 
 
 def rcb_madd(f, P, x2, y2, b3):
-    """Complete mixed add P + (x2, y2) with Z2 = 1.  11M + 14a.
+    """Complete mixed add P + (x2, y2) with Z2 = 1.  11M, two products by
+    b3, 14a.
 
     (x2, y2) must be a genuine affine point (not the identity); P may be
     anything including the identity.

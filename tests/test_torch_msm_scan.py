@@ -1,5 +1,6 @@
 """K-scan's plain version against the JAX package's own formula, word for
-word, and the card rule of the scan width (`msm_gpu._lanes`).
+word; the card rule of the scan width (`msm_gpu._lanes`); the count of
+field products in K-scan's bound (`chip_smoke.madd_products`).
 
 The JAX side is the sequential formula of `msm_tpu._scan_kernel` run step by
 step outside Pallas: `rcb.rcb_madd` over `msm_tpu._DevField` / `_DevField2`
@@ -13,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from snarkjs_tpu.curves import host_curve as hc
 from snarkjs_tpu.curves import msm_tpu, rcb
 from snarkjs_tpu.fields import fjnp
 from snarkjs_tpu_torch.curves import host_curve as thc
 from snarkjs_tpu_torch.curves import msm_gpu
+from snarkjs_tpu_torch.curves import rcb as trcb
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 C, RL, NW = 3, 128, 2
@@ -104,45 +107,54 @@ def test_scan_plain_matches_jax_formula_word_for_word(case):
 
 # ------------------------------------------------ the scan width on the card
 
-def _fill(nw, rl, resident):
-    waves = nw * rl / resident
-    return waves / np.ceil(waves)
+@pytest.mark.parametrize("nw,n,rl", [
+    (16, 600_002, 8192), (16, 262_150, 8192), (16, 1 << 20, 8192), (17, 1 << 20, 4096),
+    (32, 1 << 20, 4096), (1, 1 << 20, 1 << 17), (16, 1000, 1024), (16, 100, 128),
+    (16, 1, 128)])
+def test_lanes_on_the_card(nw, n, rl):
+    """A power of two near TARGET_THREADS / nw, no wider than the points
+    need and no narrower than one block of LN lanes: RL = 8192 at every
+    shape the 2^20 Groth16 and 2^18 PLONK proves give K-scan (nw = 16)."""
+    got = msm_gpu._lanes(nw, n, torch.device("cuda"))
+    assert got == rl and got & (got - 1) == 0
+    assert got == msm_gpu.LN or nw * got <= msm_gpu.TARGET_THREADS
 
 
-SHAPES = [(16, 600_002), (16, 262_150), (16, 1 << 20), (17, 1 << 20), (16, 1000), (32, 4096)]
+def test_lanes_on_the_cpu_ignore_residency():
+    """On the CPU about sqrt(n) lanes, at most LN, whatever the card holds."""
+    assert msm_gpu._lanes(16, 600_002, torch.device("cpu")) == msm_gpu.LN
+    assert msm_gpu._lanes(2, 100, torch.device("cpu")) == 16
 
 
-@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3, 4, 5, 6, 7, 8])
-def test_lanes_fill_the_resident_waves_best(monkeypatch, blocks_per_sm):
-    """With an H100's 132 SMs no power-of-two RL fills whole waves; the rule
-    takes the one, within a factor 2 of the target, that fills the largest
-    share of its last wave, RL = 8192 for nw = 16 when that is a tie."""
-    resident = blocks_per_sm * 132 * msm_gpu.LN
-    monkeypatch.setattr(msm_gpu, "_resident_lanes", lambda n32, ext, index: resident)
-    card = torch.device("cuda")
-    for nw, n in SHAPES:
-        rl = msm_gpu._lanes(nw, n, card, 8, 1)
-        assert rl & (rl - 1) == 0 and rl >= msm_gpu.LN
-        cap = max(msm_gpu.LN, 1 << (n - 1).bit_length())
-        assert rl <= cap
-        mid = 1 << ((msm_gpu.TARGET_THREADS // nw).bit_length() - 1)
-        others = [min(cap, max(msm_gpu.LN, r)) for r in (mid // 2, mid, mid * 2)]
-        assert all(_fill(nw, rl, resident) >= _fill(nw, r, resident) for r in others)
-    assert msm_gpu._lanes(16, 600_002, card, 8, 1) == (16384 if blocks_per_sm in (6, 7) else 8192)
+# ------------------------------------------- K-scan's bound counts every product
+
+class _CountingField:
+    """A field whose products count themselves, apart when one operand is 3b."""
+
+    def __init__(self):
+        self.by_b3 = self.other = 0
+
+    def mul(self, a, b):
+        if "b3" in (a, b):
+            self.by_b3 += 1
+        else:
+            self.other += 1
+        return "v"
+
+    def add(self, a, b):
+        return "v"
+
+    sub = add
 
 
-@pytest.mark.parametrize("resident", [1 << 14, 1 << 15, 1 << 16, 1 << 17])
-def test_lanes_fill_whole_waves_when_they_can(monkeypatch, resident):
-    """Where the resident count and nw are powers of two, nw * RL is a whole
-    number of waves."""
-    monkeypatch.setattr(msm_gpu, "_resident_lanes", lambda n32, ext, index: resident)
-    for nw, n in ((16, 600_002), (16, 262_150), (16, 1 << 20), (32, 1 << 20)):
-        rl = msm_gpu._lanes(nw, n, torch.device("cuda"), 12, 2)
-        assert rl & (rl - 1) == 0 and (nw * rl) % resident == 0
-
-
-def test_lanes_on_the_cpu_ignore_residency(monkeypatch):
-    monkeypatch.setattr(msm_gpu, "_resident_lanes",
-                        lambda *a: pytest.fail("asked the card on the CPU"))
-    assert msm_gpu._lanes(16, 600_002, torch.device("cpu"), 8, 1) == msm_gpu.LN
-    assert msm_gpu._lanes(2, 100, torch.device("cpu"), 8, 1) == 16
+@pytest.mark.parametrize("formula", [rcb, trcb], ids=["jax", "torch"])
+@pytest.mark.parametrize("ext", [1, 2])
+def test_kscan_bound_counts_every_product_of_the_mixed_add(formula, ext):
+    """`chip_smoke.madd_products`, the base-field products of one K-scan step
+    in its bound, against the products the mixed-add formula makes: on G1
+    the two by 3b are an add ladder, on G2 every Fq2 product is three."""
+    f = _CountingField()
+    formula.rcb_madd(f, ("v", "v", "v"), "v", "v", "b3")
+    assert (f.other, f.by_b3) == (11, 2)
+    want = f.other if ext == 1 else 3 * (f.other + f.by_b3)
+    assert chip_smoke.madd_products(ext) == want
