@@ -50,7 +50,22 @@ Phases (any failure exits non-zero before the last line):
      PyTorch), launch counts set to 0 just before and read just after, each
      result equal limb for limb to the default route's; then K-mm against its
      plain version at every shape that path gave it;
- 10. K-scan's registers, local memory and spills, the kernels line, then the
+ 10. Groth16 and PLONK setup from a prepared .ptau: a power-19 bn128 .ptau
+     built on the card from fixed secrets (every point by the port's batched
+     double-and-add; sections 2-6, 12-15 as one contribution and
+     preparePhase2 leave them), round-tripped through `tobytes`/`read_ptau`;
+     K-field against its plain version at 2^21 and at 2^18 + 37 elements;
+     `groth16_setup.setup_from_ptau` on the 200,000-constraint chain (domain
+     2^18), timed once with every coefficient 1 and then on the chain with
+     circom's coefficients (p - 1 on a factor and on the output, so every
+     segmented MSM runs all 254 steps): sections 1-9 of that zkey equal to
+     `write_groth16_zkey(setup_from_secrets(...))` with the same secrets, one run under
+     torch.profiler for the busy share; a Groth16 proof with the key passing
+     the pairing check, a tampered public rejected; then
+     `plonk_setup.setup_from_ptau` on the same chain and a PLONK proof the
+     same way.  Launch counts set to 0 just before each of the .ptau build
+     and the two setups and read just after (`launches_setup`);
+ 11. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
@@ -62,6 +77,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -78,12 +94,14 @@ from snarkjs_tpu_torch.curves import msm as msm_mod
 from snarkjs_tpu_torch.curves import msm_gpu
 from snarkjs_tpu_torch.fields import fcuda, ftorch
 from snarkjs_tpu_torch.formats import points as pcodec
+from snarkjs_tpu_torch.formats import ptau as ptau_fmt
+from snarkjs_tpu_torch.formats.binfile import BinFile
 from snarkjs_tpu_torch.formats.r1cs import R1cs
 from snarkjs_tpu_torch.formats.wtns import Witness
-from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_plonk_zkey
+from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_groth16_zkey, read_plonk_zkey
 from snarkjs_tpu_torch.ntt import ntt_mm
 from snarkjs_tpu_torch.poly import fops
-from snarkjs_tpu_torch.protocols import groth16, plonk, plonk_setup
+from snarkjs_tpu_torch.protocols import groth16, groth16_setup, plonk, plonk_setup
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "snarkjs_tpu_torch", "fixtures")
@@ -635,26 +653,31 @@ def bound(nbytes, ops, rate):
 
 def profile_busy(fn, warm_ms):
     """One run of `fn` under torch.profiler: device time per kernel, and the
-    busy share as that device time over `warm_ms`, the same work's warm wall
-    time without the profiler (the profiler stretches the host side)."""
+    busy share as that device time over `warm_ms`, the same work's wall time
+    without the profiler (the profiler stretches the host side).  Only the
+    device's own events count (kernels, copies): an aten op's row carries the
+    device time of the kernels it launched, which have rows of their own.
+    The device events are read from the profiler's raw results: building
+    `key_averages()` costs about a millisecond a launch, minutes for a
+    setup of 10^5 launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _ = wall_ms(fn)
+    t_read = time.perf_counter()
     by_kernel = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0)
-        if t > 0:
-            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + t / 1e3
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA and evt.duration_ns() > 0:
+            by_kernel[evt.name()] = by_kernel.get(evt.name(), 0.0) + evt.duration_ns() / 1e6
     busy = sum(by_kernel.values())
+    log(f"  profiler events read in {time.perf_counter() - t_read:.1f} s")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     if busy == 0:
         log("  profiler: no device time recorded (device busy share not measured)")
         return None
-    log(f"  profiled prove: wall {wall:.1f} ms (profiler on), device busy "
-        f"{busy:.1f} ms; over the unprofiled warm prove ({warm_ms:.1f} ms): "
+    log(f"  profiled run: wall {wall:.1f} ms (profiler on), device busy "
+        f"{busy:.1f} ms; over the unprofiled run ({warm_ms:.1f} ms): "
         f"busy {100 * busy / warm_ms:.1f}%, idle {100 - 100 * busy / warm_ms:.1f}%")
     for k, v in top:
         log(f"    {v:9.2f} ms  {k[:90]}")
@@ -870,6 +893,21 @@ def plonk_circuit(fr):
     return r1cs, Witness(n8=fr.n8, q=fr.p, n=len(w), values=ftorch.np_from_ints(fr, w))
 
 
+def circom_chain(fr):
+    """`plonk_circuit`'s chain with the coefficients circom writes for
+    `y <== x * x`: p - 1 on one factor and on the output ((-x) x = -y), the
+    negated factor alternating between A and B.  Every point section of the
+    Groth16 setup then holds full-width scalars, so each of its segmented
+    MSMs runs all 254 double-and-add steps.  The witness is the chain's."""
+    r1cs, wit = plonk_circuit(fr)
+    i = np.arange(r1cs.n_constraints)
+    neg = np.array(fr.limbs(fr.p - 1), dtype=np.uint32)[:, None]
+    vals = r1cs.vals.copy()          # constraint i: A, B, C at 3i, 3i + 1, 3i + 2
+    vals[:, 3 * i + i % 2] = neg
+    vals[:, 3 * i + 2] = neg
+    return dataclasses.replace(r1cs, vals=vals), wit
+
+
 def plonk_synthetic_key(cv, tables, r1cs, dev):
     """The PLONK key of `r1cs`, written by the port's own writer on the card.
     The SRS is tiled from the 512 multiples of G1 (point i is ((i mod 512) +
@@ -885,7 +923,8 @@ def plonk_synthetic_key(cv, tables, r1cs, dev):
         k = sum(v * (i % 512 + 1) for i, v in enumerate(vals_plain)) % fr.p
         return hc.g1_mul(cv, cv.g1, k)
 
-    zbytes = plonk_setup._write_plonk_zkey(cv, r1cs, commit, ptau_lem,
+    zbytes = plonk_setup._write_plonk_zkey(cv, r1cs, plonk_setup.process_constraints(fr, r1cs),
+                                           commit, ptau_lem,
                                            hc.g2_mul(cv, cv.g2, 5), device=dev)
     zk = read_plonk_zkey(zbytes)
     check(zk.domain_size == domain and zk.ptau[2].shape[0] == M,
@@ -1085,6 +1124,227 @@ def phase_plonk_times(dev, zk, wit, b, prove_ms):
     return paired
 
 
+# ------------------------------------------------------------- setup phase
+
+SETUP_SECRETS = {"tau": 0x2F0A_51C3_99D7_6E14_B8A2_0C5D, "alpha": 0x6B2E_91D4_C3F7,
+                 "beta": 0x3D8C_A7F1_0E65}
+SETUP_POWER = 19   # the .ptau: one power above the 2^18 circuits
+
+
+def ptau_scalars(cv, power, tau, alpha, beta):
+    """The scalars of every point of the prepared .ptau of `power` that one
+    contribution of (tau, alpha, beta) and preparePhase2 leave: section id ->
+    (scalars, G2?).  Sections 2-6 hold tau^i, alpha tau^i, beta tau^i and
+    beta; 12-15 the Lagrange values of each power 0 .. power (12 also
+    power + 1), times alpha in 14 and beta in 15.  Section 12's top block is
+    the group iFFT of 2^(power+1) - 1 tau points and one zero point
+    (ptau_ops.prepare_phase2), so its scalars are L_j(tau) - tau^(m-1) w^j / m
+    with m = 2^(power+1)."""
+    fr = cv.fr
+    p = fr.p
+    n = 1 << power
+    taus, t = [], 1
+    for _ in range(2 * n - 1):
+        taus.append(t)
+        t = t * tau % p
+    scaled = lambda k, vs: [k * v % p for v in vs]
+    lag = [v for q in range(power + 1) for v in groth16_setup.lagrange_at(fr, tau, 1 << q)]
+    m = 2 * n
+    top = groth16_setup.lagrange_at(fr, tau, m)
+    c, wj, w = taus[m - 2] * tau % p * pow(m, p - 2, p) % p, 1, fr.w[power + 1]
+    for j in range(m):
+        top[j] = (top[j] - c * wj) % p
+        wj = wj * w % p
+    return {2: (taus, False), 3: (taus[:n], True), 4: (scaled(alpha, taus[:n]), False),
+            5: (scaled(beta, taus[:n]), False), 6: ([beta], True), 12: (lag + top, False),
+            13: (lag, True), 14: (scaled(alpha, lag), False), 15: (scaled(beta, lag), False)}
+
+
+def build_ptau(cv, power, scalars, dev):
+    """The .ptau whose points are [k]G for the scalars of `ptau_scalars`, all
+    G1 points from one call of the port's `_points_from_scalars` and all G2
+    points from another (the batched double-and-add on the card above 512
+    scalars, in batches of its DEVICE_BATCH).  No contribution record."""
+    fq = cv.fq
+    pt = ptau_fmt.PtauFile(cv, power, power)
+    for g2 in (False, True):
+        sids = [sid for sid, (_, is_g2) in scalars.items() if is_g2 == g2]
+        ks = [k for sid in sids for k in scalars[sid][0]]
+        lem = (pcodec.g2_lem_to_bytes if g2 else pcodec.g1_lem_to_bytes)(
+            fq, *groth16_setup._points_from_scalars(cv, ks, g2, dev))
+        size, pos = (4 if g2 else 2) * fq.n8, 0
+        for sid in sids:
+            n = len(scalars[sid][0]) * size
+            pt.sections[sid] = lem[pos:pos + n]
+            pos += n
+    return pt
+
+
+def zkey_sections(data):
+    bf = BinFile(data, "zkey")
+    return {sid: bf.read_section(sid) for sid in sorted(bf.sections)}
+
+
+def phase_setup(dev, gen, errs, rate32):
+    """Groth16 and PLONK setup from a prepared .ptau on the card: the
+    power-19 .ptau built from SETUP_SECRETS (through `tobytes`/`read_ptau`),
+    K-field held at the build's batch size and at a ragged one, the Groth16
+    key of the 200,000-constraint chain with circom's coefficients from it
+    against the one from `setup_from_secrets` (sections 1-9 equal; the chain
+    with every coefficient 1 timed beside it), a proof with each key
+    passing the pairing check and a tampered public rejected.  Launch counts
+    set to 0 just before each setup and read just after."""
+    cv = hc.BN254
+    fr = cv.fr
+    sec = SETUP_SECRETS
+    t_phase = time.perf_counter()
+    steps, launches = {}, {}
+
+    # K-field at the build's batch of 2^21 and at a size that is no multiple
+    # of its 256-thread block (the segmented sums' rounds give it such sizes)
+    ctx = ftorch.get_ctx("bn254_fq")
+    for n in (1 << 21, (1 << 18) + 37):
+        a, b = rand_field(ctx.fp, n, dev, gen), rand_field(ctx.fp, n, dev, gen).flip(1).contiguous()
+        for op, fn in (("add", ftorch.add), ("sub", ftorch.sub),
+                       ("mont_mul", ftorch.mont_mul)):
+            got = fn(ctx, a, b)
+            with ftorch.plain_versions():
+                want = fn(ctx, a, b)
+            e = max_abs_err(got, want)
+            check(e == 0, f"K-field {op} bn254_fq at {n} differs from plain ({e})")
+            errs["field_ops"] = max(errs["field_ops"], e)
+    del a, b, got, want
+    log("  K-field bn254_fq: add sub mont_mul == plain at 2^21 and 2^18 + 37")
+
+    t = time.perf_counter()
+    scalars = ptau_scalars(cv, SETUP_POWER, sec["tau"], sec["alpha"], sec["beta"])
+    steps["ptau_scalars_host"] = (time.perf_counter() - t) * 1e3
+    reset_counts()
+    steps["ptau_build"], pt = wall_ms(lambda: build_ptau(cv, SETUP_POWER, scalars, dev))
+    launches["ptau_build"] = counts()
+    check(launches["ptau_build"]["field_ops"] > 0, "the .ptau build launched no K-field")
+    # where the build's time goes: section 2's 2^20 - 1 G1 points alone
+    # (the build runs batches of 2^21), once more and once under the profiler
+    g1_batch = lambda: groth16_setup._points_from_scalars(cv, scalars[2][0], False, dev)
+    steps["ptau_g1_section2"], _ = wall_ms(g1_batch)
+    log(f"  section 2's G1 points alone ({len(scalars[2][0])}): "
+        f"{steps['ptau_g1_section2']:.0f} ms")
+    batch_busy = profile_busy(g1_batch, steps["ptau_g1_section2"])
+    del scalars
+    t = time.perf_counter()
+    data = pt.tobytes()
+    back = ptau_fmt.read_ptau(data)
+    check(back.power == SETUP_POWER and back.curve.name == cv.name
+          and back.contributions == []
+          and all(bytes(back.sections[s]) == bytes(pt.sections[s]) for s in pt.sections)
+          and sorted(back.sections) == sorted(pt.sections) and back.tobytes() == data,
+          "the .ptau does not round-trip through tobytes / read_ptau")
+    steps["ptau_roundtrip"] = (time.perf_counter() - t) * 1e3
+    log(f"  power-{SETUP_POWER} .ptau: scalars on the host {steps['ptau_scalars_host']:.0f} ms, "
+        f"points on the card {steps['ptau_build']:.0f} ms "
+        f"({len(data) / 1e6:.0f} MB; launches {launches['ptau_build']}); "
+        f"round trip through tobytes / read_ptau in {steps['ptau_roundtrip']:.0f} ms")
+    del pt
+
+    # the chain with every coefficient 1: each segmented MSM runs one step
+    ones, _ = plonk_circuit(fr)
+    reset_counts()
+    steps["groth16_setup_from_ptau_ones"], _ = wall_ms(
+        lambda: groth16_setup.setup_from_ptau(ones, back, device=dev))
+    launches["groth16_setup_ones"] = counts()
+    log(f"  Groth16 setup_from_ptau, coefficients all 1: "
+        f"{steps['groth16_setup_from_ptau_ones']:.0f} ms; "
+        f"launches {launches['groth16_setup_ones']}")
+    del ones
+
+    r1cs, wit = circom_chain(fr)
+    reset_counts()
+    steps["groth16_setup_from_ptau"], zbytes = wall_ms(
+        lambda: groth16_setup.setup_from_ptau(r1cs, back, device=dev))
+    launches["groth16_setup"] = counts()
+    zk = read_groth16_zkey(zbytes)
+    check(zk.power == SETUP_POWER - 1, "the Groth16 domain is not one power below the .ptau")
+    log(f"  Groth16 setup_from_ptau, circom's coefficients: "
+        f"{steps['groth16_setup_from_ptau']:.0f} ms; "
+        f"launches {launches['groth16_setup']}")
+    check(launches["groth16_setup"]["field_ops"] > 0,
+          "the Groth16 setup launched no K-field")
+    busy = profile_busy(lambda: groth16_setup.setup_from_ptau(r1cs, back, device=dev),
+                        steps["groth16_setup_from_ptau"])
+    steps["groth16_setup_from_secrets"], zsec = wall_ms(
+        lambda: groth16_setup.write_groth16_zkey(groth16_setup.setup_from_secrets(
+            r1cs, sec["tau"], sec["alpha"], sec["beta"], device=dev)))
+    a, b = zkey_sections(zbytes), zkey_sections(zsec)
+    check(sorted(a) == sorted(b) == list(range(1, 11)), "zkey section lists differ")
+    for sid in range(1, 10):
+        check(a[sid] == b[sid], f"Groth16 zkey section {sid}: setup_from_ptau differs "
+                                "from setup_from_secrets")
+    check(b[10] == bytes(68) and a[10][64:] == bytes(4) and a[10][:64] != bytes(64),
+          "section 10: expected the csHash from the .ptau and zeros from the secrets")
+    log(f"  setup_from_secrets + write_groth16_zkey: {steps['groth16_setup_from_secrets']:.0f} ms; "
+        f"sections 1-9 equal to setup_from_ptau's; csHash {a[10][:8].hex()}...")
+    del zsec, a, b
+
+    vk = groth16.export_verification_key(zk)
+    steps["groth16_prove"], (proof, publics) = wall_ms(
+        lambda: groth16.prove(zk, wit, r=0x5151, s=0x7373, device=dev))
+    t = time.perf_counter()
+    check(groth16.verify(vk, publics, proof), "the Groth16 proof with the new key fails")
+    bad = [str(int(publics[0]) + 1)] + publics[1:]
+    check(not groth16.verify(vk, bad, proof), "tampered public accepted (Groth16 setup)")
+    steps["groth16_verify"] = (time.perf_counter() - t) * 1e3
+    log(f"  Groth16 prove with it {steps['groth16_prove']:.0f} ms (first, uploads the key); "
+        "pairing check passes, tampered public rejected")
+    del zk, zbytes
+    torch.cuda.empty_cache()
+
+    with recorded_shapes() as shapes:
+        reset_counts()
+        steps["plonk_setup_from_ptau"], pbytes = wall_ms(
+            lambda: plonk_setup.setup_from_ptau(r1cs, back, device=dev))
+        launches["plonk_setup"] = counts()
+    log(f"  PLONK setup_from_ptau: {steps['plonk_setup_from_ptau']:.0f} ms; "
+        f"launches {launches['plonk_setup']}")
+    check(launches["plonk_setup"]["field_ops"] > 0 and launches["plonk_setup"]["msm_scan"] == 8
+          and launches["plonk_setup"]["digit_mm_norm"] > 0,
+          "the PLONK setup did not launch K-field, eight K-scans and K-mm-norm")
+    pzk = read_plonk_zkey(pbytes)
+    check(pzk.power == SETUP_POWER - 1, "the PLONK domain is not one power below the .ptau")
+    b_ = list(range(201, 213))
+    steps["plonk_prove"], (proof, publics) = wall_ms(
+        lambda: plonk.prove(pzk, wit, b=b_, device=dev))
+    t = time.perf_counter()
+    pvk = plonk.export_verification_key(pzk)
+    check(plonk.verify(pvk, publics, proof), "the PLONK proof with the new key fails")
+    bad = [str(int(publics[0]) + 1)] + publics[1:]
+    check(not plonk.verify(pvk, bad, proof), "tampered public accepted (PLONK setup)")
+    steps["plonk_verify"] = (time.perf_counter() - t) * 1e3
+    log(f"  PLONK prove with it {steps['plonk_prove']:.0f} ms (first, uploads the key); "
+        "pairing check passes, tampered public rejected")
+    del pzk, pbytes
+    torch.cuda.empty_cache()
+
+    # K-scan at the commitments' shape (2^18 Lagrange bases, not the proves'
+    # 2^18 + 6 SRS points); K-mm-norm's stage shapes are the PLONK prove's
+    log(f"  PLONK setup shapes: {shapes_json(shapes)}")
+    domain = 1 << (SETUP_POWER - 1)
+    s_g1 = 2 * cv.fq.n8
+    lx, ly, linf = pcodec.g1_lem_from_bytes(
+        cv.fq, back.sections[12][(domain - 1) * s_g1:(2 * domain - 1) * s_g1], domain)
+    bases = (ftorch.to_tensor(lx, dev), ftorch.to_tensor(ly, dev),
+             torch.from_numpy(linf).to(dev))
+    scan = scan_case(cv, "g1", bases, rand_field(fr, domain, dev, gen), shapes["msm_scan"],
+                     "plonk setup", rate32, errs)
+    check(set(shapes["digit_mm_norm"]) <= set(STAGE_SHAPES) and not shapes["digit_mm"],
+          f"the PLONK setup gave the NTT kernels new shapes: {shapes_json(shapes)}")
+    del back, bases
+    total = time.perf_counter() - t_phase
+    log(f"  setup phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"  setup phase total {total:.1f} s")
+    return {"steps_ms": steps, "launches": launches, "busy_ms": busy,
+            "ptau_g1_section2_busy_ms": batch_busy, "total_s": total, "scan": scan}
+
+
 def sass_tensor_core_counts():
     """IGMMA (wgmma) and IMMA (mma.sync) instructions in the SASS of the two
     digit-matmul libraries; fails unless each holds some."""
@@ -1152,6 +1412,11 @@ def main():
     torch.cuda.empty_cache()
     log(f"[NTT path: K-mm] ({time.perf_counter() - t0:.1f} s so far)")
     nl, nshapes, nmms = phase_ntt_path(dev, gen, errs)
+    torch.cuda.empty_cache()
+    log(f"[Groth16 and PLONK setup from a .ptau] ({time.perf_counter() - t0:.1f} s so far)")
+    setup = phase_setup(dev, gen, errs, rate32)
+    sl = setup["launches"]
+    entries["msm_scan"].append(setup.pop("scan"))
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
     # for K-mm, which no prove runs (the NTT path's).  `ms`, `plain_ms` and
@@ -1180,13 +1445,17 @@ def main():
                   "library_ms": None}, **first)
         k.update(launches=nl[kname] if kname == "digit_mm" else pl[kname],
                  max_abs_err=errs[kname], launches_groth16=launches[kname],
-                 launches_plonk=pl[kname], launches_ntt_path=nl[kname], shapes=every)
+                 launches_plonk=pl[kname], launches_ntt_path=nl[kname],
+                 launches_setup=sum(c[kname] for c in sl.values()),
+                 launches_setup_by_step={step: c[kname] for step, c in sl.items()},
+                 shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
         kernels.append(k)
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
+    log(f"setup phase: {json.dumps(setup)}")
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,10 +1,20 @@
-"""MSM entry for the prover and the host jacobian helpers (port of
-snarkjs_tpu/curves/msm.py: `MSMContext.run` and the bigint finishing).
+"""MSM entry for the prover, the setup's segmented MSM and the host
+Jacobian helpers (port of snarkjs_tpu/curves/msm.py: `MSMContext.run`,
+`segmented_msm` and the bigint finishing).
 
 `MSMContext.run` goes to the suffix-scan engine (`msm_gpu.GpuMSM`) with the
 window-width rule of the JAX package: cw = 16 on the card for batches of
 2^14 points and more, cw = 8 for smaller batches and off the card (the
 bucket tree scales with 2^(cw-1)).
+
+`segmented_msm` serves the Groth16 setup: one batched double-and-add over
+every entry, then a sum per segment.  The JAX package sums with a two-level
+segmented scan whose first level walks n / 64 columns one after another
+(one Jacobian add each); on the card that is thousands of sequential steps
+of small launches.  Here each round adds every even-ranked entry of a
+segment to the entry after it and keeps the even ones, so a segment of m
+entries takes ceil(log2 m) rounds and all segments go at once.  The sums are
+the same points, so the affine results (the bytes the setup writes) agree.
 """
 
 from __future__ import annotations
@@ -12,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..fields.params import LIMB_BITS
+from . import jac
 
 
 class MSMContext:
@@ -43,6 +54,55 @@ class MSMContext:
         elif cw != LIMB_BITS:
             raise ValueError("cw must be 8 or 16")
         return m.run(px, py, pinf, scalars)
+
+
+def segment_sums(f, P, seg, n_out: int):
+    """out[k] = sum of the Jacobian points P[i] with seg[i] == k, for
+    k < n_out; seg (N,) int64, grouped by segment (equal values adjacent),
+    values in [0, n_out] (n_out is a trash segment that is dropped).  Empty
+    segments come out as infinity.  Each round pairs every entry of even
+    rank within its segment with the next entry of that segment."""
+    n = seg.shape[0]
+    while n > 1:
+        idx = torch.arange(n, device=seg.device)
+        start = torch.ones(n, dtype=torch.bool, device=seg.device)
+        start[1:] = seg[1:] != seg[:-1]
+        rank = idx - torch.cummax(torch.where(start, idx, 0), dim=0).values
+        partner = torch.zeros(n, dtype=torch.bool, device=seg.device)
+        partner[:-1] = ~start[1:]
+        if not bool(partner.any()):
+            break
+        keep = torch.nonzero(rank % 2 == 0).flatten()
+        pair = torch.nonzero(partner[keep]).flatten()
+        left = tuple(f.gather(c, keep) for c in P)
+        both = keep[pair]
+        sums = jac.jac_add(f, tuple(f.gather(c, both) for c in P),
+                           tuple(f.gather(c, both + 1) for c in P))
+        for c, v in zip(left, sums):
+            f.put(c, pair, v)
+        P, seg, n = left, seg[keep], keep.shape[0]
+    out = jac.jac_zero(f, (n_out + 1,))
+    for c, v in zip(out, P):
+        f.put(c, seg, v)
+    return tuple(f.gather(c, slice(0, n_out)) for c in out)
+
+
+def segmented_msm(f, px, py, pinf, scalars, seg, n_out: int, nbits: int):
+    """Per-segment MSM: out[k] = sum_{i: seg[i] == k} scalars_i * P_i.
+
+    px, py: affine coordinates (Montgomery limbs), pinf (N,) bool, scalars
+    (NL, N) plain 16-bit limbs, seg (N,) int64 grouped by segment, values in
+    [0, n_out].  Used by the Groth16 setup's per-signal point composition
+    (reference src/zkey_new.js:338-501).  The double-and-add runs as many
+    steps as the batch's largest scalar has bits (at most nbits).  That only
+    saves steps when every scalar of the batch is small: one coefficient such
+    as p - 1, which circom writes for a negated term, brings back all nbits
+    steps.  Returns Jacobian points with an (n_out,)
+    batch; empty segments are the point at infinity."""
+    nbits = min(nbits, jac.scalar_bit_length(scalars))
+    P = jac.batch_scalar_mul_limbs(f, jac.from_affine(f, px, py, pinf),
+                                   scalars, nbits)
+    return segment_sums(f, P, seg, n_out)
 
 
 # ---------------- host jacobian finishing (bigint, exact) ----------------

@@ -34,77 +34,11 @@ from .. import _build
 from ..fields import fcuda, ftorch
 from ..fields.params import LIMB_BITS, FieldParams
 from . import rcb
+from .gops import field_ops
 
 LN = 128                 # lanes on the CPU (tests)
 TARGET_THREADS = 1 << 17  # K-scan threads per launch on the card
 LAUNCHES = [0]
-
-
-# ------------------------------------------------------------ field facades
-
-class _DevField:
-    """rcb field adapter over ftorch for Fq; K-field on CUDA tensors."""
-
-    def __init__(self, ctx, device):
-        self.ctx = ctx
-        self.device = device
-
-    def mul(self, a, b):
-        return ftorch.mont_mul(self.ctx, a, b)
-
-    def add(self, a, b):
-        return ftorch.add(self.ctx, a, b)
-
-    def sub(self, a, b):
-        return ftorch.sub(self.ctx, a, b)
-
-    def select(self, mask, a, b):
-        return torch.where(mask[None], a, b)
-
-    def zero(self, batch_shape=()):
-        return self.ctx.zero(batch_shape, self.device)
-
-    def one(self, batch_shape=()):
-        return self.ctx.one(batch_shape, self.device)
-
-    def batch_shape(self, a):
-        return a.shape[1:]
-
-
-class _DevField2:
-    """Fq2 = Fq[u]/(u^2+1), Karatsuba (the order of fpal.KernelField2)."""
-
-    def __init__(self, ctx, device):
-        self.f = _DevField(ctx, device)
-
-    def mul(self, a, b):
-        f = self.f
-        m0 = f.mul(a[0], b[0])
-        m1 = f.mul(a[1], b[1])
-        m2 = f.mul(f.add(a[0], a[1]), f.add(b[0], b[1]))
-        return (f.sub(m0, m1), f.sub(m2, f.add(m0, m1)))
-
-    def add(self, a, b):
-        return (self.f.add(a[0], b[0]), self.f.add(a[1], b[1]))
-
-    def sub(self, a, b):
-        return (self.f.sub(a[0], b[0]), self.f.sub(a[1], b[1]))
-
-    def select(self, mask, a, b):
-        return (self.f.select(mask, a[0], b[0]), self.f.select(mask, a[1], b[1]))
-
-    def zero(self, batch_shape=()):
-        return (self.f.zero(batch_shape), self.f.zero(batch_shape))
-
-    def one(self, batch_shape=()):
-        return (self.f.one(batch_shape), self.f.zero(batch_shape))
-
-    def batch_shape(self, a):
-        return a[0].shape[1:]
-
-
-def _field(ctx, ext, device):
-    return _DevField(ctx, device) if ext == 1 else _DevField2(ctx, device)
 
 
 def _b3_ints(fp: FieldParams, b, ext):
@@ -166,7 +100,7 @@ def scan_plain(fq: FieldParams, b, ext: int, xyT):
     npk = nin - 1
     dev = xyT.device
     with ftorch.plain_versions():
-        f = _field(ctx, ext, dev)
+        f = field_ops(ctx, ext, dev)
         b3 = _dev_b3(ctx, b, ext, 2, dev)
         P = rcb.rcb_zero(f, (nw, RL))
         out = torch.empty((nw, C, 3 * npk // 2, RL), dtype=torch.int32, device=dev)
@@ -318,7 +252,7 @@ class GpuMSM:
         nl = fq.nl
         Np = C * RL
         half = self.nb // 2
-        f = _field(self.ctx, ext, device)
+        f = field_ops(self.ctx, ext, device)
 
         def window_scan(keys, xyp):
             xyT, dsort = self._sorted(keys, xyp, C, RL)

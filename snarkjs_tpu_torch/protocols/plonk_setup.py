@@ -14,8 +14,8 @@ Q/sigma/Lagrange polynomials are emitted as "P4" blocks (n coefficients +
 4n-domain evaluations, src/plonk_setup.js:326-333) computed with the port's
 NTT on the card (or the CPU when asked); commitments use a same-base
 scalar-mul when setting up from a secret tau (test path, equivalent to a
-1-participant ceremony).  Setting up from a prepared .ptau waits for the
-.ptau codec (ROADMAP A4).
+1-participant ceremony), and MSMs over the Lagrange points of a prepared
+.ptau file in `setup_from_ptau`.
 
 Note the reference's getK1K2 (src/plonk_setup.js:484-504) discards the
 Fr.add results, so k1 = 2 and k2 = 3 always; we keep those constants for
@@ -25,9 +25,11 @@ byte-compatibility (both lie outside H and k1*H for all practical domains).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import device as devmod
 from ..curves import host_curve as hc
+from ..curves import msm as msm_mod
 from ..fields import ftorch
 from ..formats import points as pcodec
 from ..formats import zkey as zkey_fmt
@@ -206,8 +208,8 @@ def setup_from_secrets(r1cs: R1cs, tau: int, device=None) -> bytes:
     fr, fq = cv.fr, cv.fq
     p = fr.p
 
-    con, _, _ = process_constraints(fr, r1cs)
-    cir_power = max((len(con) - 1).bit_length(), 3)
+    lowered = process_constraints(fr, r1cs)
+    cir_power = max((len(lowered[0]) - 1).bit_length(), 3)
     domain = 1 << cir_power
     if tau % p == 0 or pow(tau, domain, p) == 1:
         raise ValueError("tau in evaluation domain")
@@ -224,31 +226,63 @@ def setup_from_secrets(r1cs: R1cs, tau: int, device=None) -> bytes:
     for _ in range(domain + 6):
         taui.append(t)
         t = t * tau % p
-    pt = _points_from_scalars(cv, taui)
+    pt = _points_from_scalars(cv, taui, device=device)
     ptau_lem = pcodec.g1_lem_to_bytes(fq, *pt)
-    return _write_plonk_zkey(cv, r1cs, commit, ptau_lem,
+    return _write_plonk_zkey(cv, r1cs, lowered, commit, ptau_lem,
                              hc.g2_mul(cv, cv.g2, tau), device)
 
 
-def setup_from_ptau(r1cs: R1cs, ptau):
-    """`plonk setup` from a prepared .ptau (reference src/plonk_setup.js:36)."""
-    raise NotImplementedError(
-        "plonk setup from a .ptau file needs the .ptau codec and the ceremony "
-        "(ROADMAP A4), not ported yet; use setup_from_secrets")
+def setup_from_ptau(r1cs: R1cs, ptau, device=None) -> bytes:
+    """`plonk setup` from a prepared .ptau (reference src/plonk_setup.js:36):
+    the vk commitments are MSMs (`MSMContext`, K-scan on the card) over the
+    Lagrange points of the circuit's power; the zkey embeds n+6 monomial tau
+    points and X_2 = tau*G2.  device: None means the card ("cuda")."""
+    device = devmod.resolve(device)
+    cv = ptau.curve
+    fr, fq = cv.fr, cv.fq
+    if r1cs.prime != fr.p:
+        raise ValueError("r1cs curve does not match powers of tau ceremony "
+                         "curve")
+    if 12 not in ptau.sections:
+        raise ValueError("Powers of tau is not prepared.")
+
+    lowered = process_constraints(fr, r1cs)
+    cir_power = max((len(lowered[0]) - 1).bit_length(), 3)
+    domain = 1 << cir_power
+    if cir_power > ptau.power:
+        raise ValueError("circuit too big for this power of tau ceremony")
+
+    s_g1 = 2 * fq.n8
+    off = (domain - 1) * s_g1
+    lx, ly, linf = pcodec.g1_lem_from_bytes(
+        fq, ptau.sections[12][off:off + domain * s_g1], domain)
+    bases = (ftorch.to_tensor(lx, device), ftorch.to_tensor(ly, device),
+             torch.from_numpy(linf).to(device))
+    g1m = msm_mod.MSMContext(ftorch.get_ctx(fq.name), fq, extension=1)
+
+    def commit(vals_plain):
+        sc = ftorch.to_tensor(ftorch.np_from_ints(fr, list(vals_plain)), device)
+        return msm_mod.host_jac_to_affine(fq, g1m.run(*bases, sc), 1)
+
+    ptau_lem = bytes(ptau.sections[2][:(domain + 6) * s_g1])
+    x_2 = pcodec.g2_lem_to_ints(fq, ptau.sections[3][4 * fq.n8:8 * fq.n8], 1)[0]
+    return _write_plonk_zkey(cv, r1cs, lowered, commit, ptau_lem, x_2, device)
 
 
-def _write_plonk_zkey(cv, r1cs: R1cs, commit, ptau_lem: bytes,
+def _write_plonk_zkey(cv, r1cs: R1cs, lowered, commit, ptau_lem: bytes,
                       x_2, device=None) -> bytes:
-    """The zkey bytes for `r1cs`: `commit(values)` gives the commitment to a
-    polynomial from its n domain values (plain ints), `ptau_lem` is the SRS
-    section (n + 6 G1 points, LEM bytes), `x_2` = [tau]G2."""
+    """The zkey bytes for `r1cs`, whose plonkish lowering `lowered` is
+    (constraints, additions, n_vars) from `process_constraints`:
+    `commit(values)` gives the commitment to a polynomial from its n domain
+    values (plain ints), `ptau_lem` is the SRS section (n + 6 G1 points, LEM
+    bytes), `x_2` = [tau]G2."""
     device = devmod.resolve(device)
     fr, fq = cv.fr, cv.fq
     p = fr.p
     frctx = ftorch.get_ctx(fr.name)
     n_public = r1cs.n_public
 
-    con, adds, n_vars = process_constraints(fr, r1cs)
+    con, adds, n_vars = lowered
     cir_power = max((len(con) - 1).bit_length(), 3)
     domain = 1 << cir_power
 

@@ -4,7 +4,8 @@ The same tiny keys (JAX `setup_from_secrets`, carried over by `convert`) and
 witnesses go through both packages on the CPU; proofs must be byte-equal.
 Also checks the port's zkey reader and the stored chip-smoke fixture.
 
-`python -m tests.test_torch_groth16` rewrites snarkjs_tpu_torch/fixtures/.
+`python -m tests.test_torch_groth16` rewrites snarkjs_tpu_torch/fixtures/:
+the files below and the .ptau setup fixtures of tests/test_torch_groth16_setup.py.
 """
 
 import functools
@@ -21,7 +22,9 @@ from snarkjs_tpu.protocols import groth16 as jg
 from snarkjs_tpu.protocols import groth16_setup
 from snarkjs_tpu_torch import convert
 from snarkjs_tpu_torch.formats import zkey as tzkey
+from snarkjs_tpu_torch.formats import r1cs as tr1cs
 from snarkjs_tpu_torch.protocols import groth16 as tg
+from snarkjs_tpu_torch.protocols import groth16_setup as tgs
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,6 +104,19 @@ def test_zkey_reader_matches_jax():
             np.testing.assert_array_equal(x, y)
 
 
+@pytest.mark.parametrize("curve,nc", [("bn128", 40), ("bls12381", 10)])
+def test_setup_from_secrets_bytes_equal_jax(curve, nc):
+    """The port's `setup_from_secrets` + `write_groth16_zkey` against the JAX
+    package's on the same circuit and secrets (the key `_tiny` made)."""
+    g = _graft()
+    _, r1cs, _ = g._tiny_circuit(nc, curve)
+    _, _, zk, _ = _tiny(curve, nc)
+    tr = tr1cs.R1cs(**{k: getattr(r1cs, k) for k in r1cs.__dataclass_fields__})
+    got = tgs.write_groth16_zkey(tgs.setup_from_secrets(
+        tr, tau=0xABCDE, alpha=5, beta=7, gamma=1, delta=11, device="cpu"))
+    assert got == groth16_setup.write_groth16_zkey(zk)
+
+
 def _leaves(t):
     if isinstance(t, tuple):
         return [y for x in t for y in _leaves(x)]
@@ -123,8 +139,10 @@ def test_prove_files_on_fixture():
 
 
 if __name__ == "__main__":
+    from tests.test_torch_groth16_setup import setup_fixture_files
+
     os.makedirs(FIXTURES, exist_ok=True)
-    for name, data in fixture_files().items():
+    for name, data in {**fixture_files(), **setup_fixture_files()}.items():
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
         print(name, len(data))

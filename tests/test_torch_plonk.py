@@ -131,12 +131,34 @@ def test_check_witness_matches_jax(jax_side):
                                    thc.get_curve("bn128").fr) is ok
 
 
-def test_waiting_parts_raise(jax_side):
-    cv = thc.get_curve("bn128")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        tsetup.setup_from_ptau(_torch_r1cs(jax_side["r1cs"]), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tg16setup._points_from_scalars(cv, list(range(513)))
+def test_setup_from_ptau_bytes_equal_jax():
+    """PLONK `setup_from_ptau` of `_tiny_circuit(3)` (domain 8) from the stored
+    power-4 .ptau of tests/test_torch_groth16_setup.py, against the JAX
+    package's on the same bytes."""
+    from snarkjs_tpu.formats import ptau as jptau
+    from snarkjs_tpu_torch.formats import ptau as tptau
+
+    _, r1cs, _ = _graft()._tiny_circuit(3, "bn128")
+    with open(os.path.join(FIXTURES, "tiny_p4_bn128.ptau"), "rb") as f:
+        data = f.read()
+    want = jsetup.setup_from_ptau(r1cs, jptau.read_ptau(data))
+    got = tsetup.setup_from_ptau(_torch_r1cs(r1cs), tptau.read_ptau(data), device="cpu")
+    assert got == want
+
+
+def test_points_from_scalars_device_route_matches_jax(jax_side):
+    """513 scalars: both packages take their batched double-and-add; the
+    (x, y, inf) limb arrays agree exactly (infinity as x = y = 0).  Scalars
+    below 2^16, with 0 and 1."""
+    from snarkjs_tpu.protocols import groth16_setup as jg16setup
+
+    cvj, cvt = jax_side["cv"], thc.get_curve("bn128")
+    ks = [0, 1] + [int(k) for k in np.random.default_rng(6).integers(2, 1 << 16, 511)]
+    want = jg16setup._points_from_scalars(cvj, ks)
+    got = tg16setup._points_from_scalars(cvt, ks, device="cpu")
+    for a, b in zip(_leaves(want), _leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    assert got[2][0] and not got[2][1:].any()
 
 
 def test_points_and_lagrange_match_jax(jax_side):

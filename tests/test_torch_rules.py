@@ -13,6 +13,8 @@ import torch
 
 from snarkjs_tpu_torch import device as devmod
 from snarkjs_tpu_torch.fields import ftorch
+from snarkjs_tpu_torch.protocols import groth16_setup as g16setup
+from snarkjs_tpu_torch.protocols import plonk_setup
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,6 +35,9 @@ PORT_MODULES = [
     "snarkjs_tpu_torch.protocols.groth16_setup", "snarkjs_tpu_torch.poly.fops",
     "snarkjs_tpu_torch.utils.keccak", "snarkjs_tpu_torch.formats.r1cs",
     "snarkjs_tpu_torch.formats.zkey", "snarkjs_tpu_torch.ntt.ntt",
+    "snarkjs_tpu_torch.curves.gops", "snarkjs_tpu_torch.curves.jac",
+    "snarkjs_tpu_torch.curves.msm", "snarkjs_tpu_torch.formats.ptau",
+    "snarkjs_tpu_torch.utils.blake2b", "snarkjs_tpu_torch.ceremony.ptau_ops",
 ]
 
 
@@ -89,7 +94,27 @@ def test_default_device_raises_without_cuda(monkeypatch):
                                     "tiny_bn128.zkey"),
                        os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures",
                                     "tiny_bn128.wtns"), r=1, s=2)
+    r1cs, pt = _setup_inputs()
+    for setup in (g16setup.setup_from_ptau, plonk_setup.setup_from_ptau):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            setup(r1cs, pt)
     assert devmod.resolve("cpu").type == "cpu"
+
+
+def _setup_inputs():
+    """A bn128 r1cs with one public input and no constraint, and the stored
+    power-4 .ptau."""
+    from snarkjs_tpu_torch.curves import host_curve as hc
+    from snarkjs_tpu_torch.formats import ptau as tptau
+    from snarkjs_tpu_torch.formats import r1cs as tr1cs
+
+    r1cs = tr1cs.R1cs(n8=32, prime=hc.BN254.fr.p, n_wires=2, n_pub_out=0, n_pub_in=1,
+                      n_prv_in=0, n_labels=2, n_constraints=0,
+                      m=np.zeros(0, np.int32), c=np.zeros(0, np.int32),
+                      s=np.zeros(0, np.int32), vals=np.zeros((16, 0), np.uint32))
+    with open(os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures",
+                           "tiny_p4_bn128.ptau"), "rb") as f:
+        return r1cs, tptau.read_ptau(f.read())
 
 
 def test_plonk_default_device_raises_without_cuda(monkeypatch):
@@ -109,6 +134,22 @@ def test_plonk_default_device_raises_without_cuda(monkeypatch):
                        s=np.zeros(0, np.int32), vals=np.zeros((16, 0), np.uint32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsetup.setup_from_secrets(empty, 5)
+
+
+def test_setup_parts_raise_without_cuda(monkeypatch):
+    """Groth16's `setup_from_secrets`, the device route of
+    `_points_from_scalars` and `lem_to_u` default to the card and raise
+    without one."""
+    from snarkjs_tpu_torch.ceremony import ptau_ops
+    from snarkjs_tpu_torch.curves import host_curve as hc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    r1cs, _ = _setup_inputs()
+    for call in (lambda: g16setup.setup_from_secrets(r1cs, 5, 6, 7),
+                 lambda: g16setup._points_from_scalars(hc.BN254, list(range(513))),
+                 lambda: ptau_ops.lem_to_u(hc.BN254, bytes(64), 1, False)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_kernel_wrappers_do_not_fall_back_on_cuda_tensors(monkeypatch):
@@ -187,6 +228,43 @@ def test_k_field_matches_plain_on_card(card, name):
 
 MM_SHAPES = [(64, 64, 96), (4, 4, 256), (256, 256, 4), (5, 10, 6),
              (256, 256, 1024), (1024, 1024, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [1, 2])
+def test_jac_add_through_k_field_matches_plain_on_card(card, ext):
+    """The setup's Jacobian add (every special case) on the card, where each
+    field op is a K-field launch, against the plain versions."""
+    from snarkjs_tpu_torch.curves import host_curve as hc
+    from snarkjs_tpu_torch.curves import jac
+    from snarkjs_tpu_torch.curves.gops import field_ops
+    from snarkjs_tpu_torch.fields import fcuda
+
+    cv = hc.BN254
+    fq = cv.fq
+    ks, qs = [3, 5, 7, 0, 0, 11], [3, cv.fr.p - 5, 0, 9, 0, 13]
+    mul, gen = (hc.g1_mul, cv.g1) if ext == 1 else (hc.g2_mul, cv.g2)
+
+    def pts(vs):
+        ps = [mul(cv, gen, k) if k else None for k in vs]
+        col = lambda f: ftorch.to_tensor(ftorch.np_from_ints(
+            fq, [0 if p is None else fq.to_mont(f(p)) for p in ps]), card)
+        inf = torch.tensor([p is None for p in ps], device=card)
+        if ext == 1:
+            return col(lambda p: p[0]), col(lambda p: p[1]), inf
+        return ((col(lambda p: p[0][0]), col(lambda p: p[0][1])),
+                (col(lambda p: p[1][0]), col(lambda p: p[1][1])), inf)
+
+    f = field_ops(ftorch.get_ctx(fq.name), ext, card)
+    P, Q = jac.from_affine(f, *pts(ks)), jac.from_affine(f, *pts(qs))
+    before = sum(fcuda.LAUNCHES.values())
+    got = jac.jac_add(f, jac.jac_dbl(f, P), Q)
+    assert sum(fcuda.LAUNCHES.values()) > before
+    with ftorch.plain_versions():
+        want = jac.jac_add(f, jac.jac_dbl(f, P), Q)
+    flat = lambda t: [y for x in t for y in (flat(x) if isinstance(x, tuple) else [x])]
+    for a, b in zip(flat(got), flat(want)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
