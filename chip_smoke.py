@@ -50,8 +50,8 @@ Phases (any failure exits non-zero before the last line):
      PyTorch), launch counts set to 0 just before and read just after, each
      result equal limb for limb to the default route's; then K-mm against its
      plain version at every shape that path gave it;
- 10. Groth16 and PLONK setup from a prepared .ptau: a power-19 bn128 .ptau
-     built on the card from fixed secrets (every point by the port's batched
+ 10. Groth16 setup from a prepared .ptau: a power-19 bn128 .ptau built on the
+     card from fixed secrets (every point by the port's batched
      double-and-add; sections 2-6, 12-15 as one contribution and
      preparePhase2 leave them), round-tripped through `tobytes`/`read_ptau`;
      K-field against its plain version at 2^21 and at 2^18 + 37 elements;
@@ -61,11 +61,25 @@ Phases (any failure exits non-zero before the last line):
      segmented MSM runs all 254 steps): sections 1-9 of that zkey equal to
      `write_groth16_zkey(setup_from_secrets(...))` with the same secrets, one run under
      torch.profiler for the busy share; a Groth16 proof with the key passing
-     the pairing check, a tampered public rejected; then
-     `plonk_setup.setup_from_ptau` on the same chain and a PLONK proof the
-     same way.  Launch counts set to 0 just before each of the .ptau build
-     and the two setups and read just after (`launches_setup`);
- 11. K-scan's registers, local memory and spills, the kernels line, then the
+     the pairing check, a tampered public rejected;
+ 11. PLONK setup from the same .ptau: `plonk_setup.setup_from_ptau` on the
+     same chain and a PLONK proof the same way.  Launch counts set to 0 just
+     before each of the .ptau build and the two setups and read just after
+     (`launches_setup`);
+ 12. FFLONK at domain 2^18: `fflonk_setup.setup_from_secrets` on the
+     200,000-constraint chain with a fixed tau (SRS of 9n + 18 = 2,359,314
+     points by the batched double-and-add, checked against host scalar
+     multiplication at five indices; the host tau powers and their limb
+     packing timed alone beside it), counted; `fflonk_setup.setup_from_ptau`
+     of a 60,000-constraint chain (domain 2^16, 589,842 SRS points) from
+     phase 10's .ptau, byte-equal to `setup_from_secrets` with that .ptau's
+     tau; one counted 2^18 prove (launch counts set to 0 just before, read
+     just after) that passes `fflonk.verify`'s pairing check while a tampered
+     public and a tampered evaluation are rejected; warm proves (median,
+     spread, peak memory), rounds 1-5 through a logger, one prove under
+     torch.profiler; then K-scan and K-mm-norm against their plain versions
+     at every shape the phase gave them, each with its time and bound;
+ 13. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
@@ -99,9 +113,11 @@ from snarkjs_tpu_torch.formats.binfile import BinFile
 from snarkjs_tpu_torch.formats.r1cs import R1cs
 from snarkjs_tpu_torch.formats.wtns import Witness
 from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_groth16_zkey, read_plonk_zkey
+from snarkjs_tpu_torch.formats.zkey import read_fflonk_zkey
 from snarkjs_tpu_torch.ntt import ntt_mm
 from snarkjs_tpu_torch.poly import fops
 from snarkjs_tpu_torch.protocols import groth16, groth16_setup, plonk, plonk_setup
+from snarkjs_tpu_torch.protocols import fflonk, fflonk_setup
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "snarkjs_tpu_torch", "fixtures")
@@ -877,10 +893,9 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
 
 # ------------------------------------------------------------- PLONK phases
 
-def plonk_circuit(fr):
-    """The squaring chain as an r1cs (wire 0 = 1, wire 1 = public x,
-    wire i+2 = wire_{i+1}^2) with its witness."""
-    nc = PLONK_CONSTRAINTS
+def plonk_circuit(fr, nc=PLONK_CONSTRAINTS):
+    """The squaring chain of `nc` constraints as an r1cs (wire 0 = 1, wire 1 =
+    public x, wire i+2 = wire_{i+1}^2) with its witness."""
     i = np.arange(nc, dtype=np.int32)
     r1cs = R1cs(
         n8=fr.n8, prime=fr.p, n_wires=nc + 2, n_pub_out=0, n_pub_in=1, n_prv_in=0,
@@ -1097,10 +1112,12 @@ def phase_ntt_path(dev, gen, errs):
 
 
 class RoundClock:
-    """A logger for `plonk.prove`: the prover announces each round with
-    `debug`; this synchronises the card there and keeps the host time."""
+    """A logger for a prover or a setup: it announces each round or step with
+    `debug`; this synchronises the card there and keeps the host time.  A
+    step is named by its message up to the first colon."""
 
-    def __init__(self):
+    def __init__(self, first="before round 1"):
+        self.first = first
         self.marks = [("start", time.perf_counter())]
 
     def debug(self, msg):
@@ -1108,7 +1125,7 @@ class RoundClock:
         self.marks.append((msg.split(":")[0], time.perf_counter()))
 
     def rounds_ms(self, end):
-        names = ["before round 1"] + [m[0] for m in self.marks[1:]]
+        names = [self.first] + [m[0] for m in self.marks[1:]]
         times = [m[1] for m in self.marks] + [end]
         return {nm: round((t1 - t0) * 1e3, 1)
                 for nm, t0, t1 in zip(names, times, times[1:])}
@@ -1193,7 +1210,8 @@ def phase_setup(dev, gen, errs, rate32):
     against the one from `setup_from_secrets` (sections 1-9 equal; the chain
     with every coefficient 1 timed beside it), a proof with each key
     passing the pairing check and a tampered public rejected.  Launch counts
-    set to 0 just before each setup and read just after."""
+    set to 0 just before each setup and read just after.  The .ptau is handed
+    back (key "ptau") for the FFLONK phase."""
     cv = hc.BN254
     fr = cv.fr
     sec = SETUP_SECRETS
@@ -1337,12 +1355,182 @@ def phase_setup(dev, gen, errs, rate32):
                      "plonk setup", rate32, errs)
     check(set(shapes["digit_mm_norm"]) <= set(STAGE_SHAPES) and not shapes["digit_mm"],
           f"the PLONK setup gave the NTT kernels new shapes: {shapes_json(shapes)}")
-    del back, bases
+    del bases
     total = time.perf_counter() - t_phase
     log(f"  setup phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
     log(f"  setup phase total {total:.1f} s")
     return {"steps_ms": steps, "launches": launches, "busy_ms": busy,
-            "ptau_g1_section2_busy_ms": batch_busy, "total_s": total, "scan": scan}
+            "ptau_g1_section2_busy_ms": batch_busy, "total_s": total, "scan": scan,
+            "ptau": back}
+
+
+# ------------------------------------------------------------- FFLONK phase
+
+FFLONK_TAU = 0x5A17_C0DE_93B1_4E27_D6F8_0A35   # the 2^18 FFLONK key's secret
+FFLONK_PTAU_CONSTRAINTS = 60_000               # domain 2^16: 589,842 SRS points
+FFLONK_PROVES = 5                              # warm proves for the median
+
+
+def srs_spot_check(cv, zk, tau, idxs):
+    """The key's SRS points at `idxs` against [tau^i]G1 by host scalar
+    multiplication."""
+    fq, p = cv.fq, cv.fr.p
+    px, py, pinf = zk.ptau
+    for i in idxs:
+        x, y = (fq.from_mont(ftorch.np_to_ints(fq, a[:, i:i + 1])[0]) for a in (px, py))
+        check(not pinf[i] and (x, y) == hc.g1_mul(cv, cv.g1, pow(tau, i, p)),
+              f"FFLONK SRS point {i} differs from [tau^{i}]G1")
+
+
+def phase_fflonk(dev, gen, errs, rate32, ptau):
+    """FFLONK on bn128 at domain 2^18: the key from a secret tau on the card,
+    `setup_from_ptau` at 2^16 from phase 10's .ptau against
+    `setup_from_secrets` with its tau, a counted prove that passes the
+    pairing check, warm times, rounds and the busy share; then K-scan and
+    K-mm-norm at every shape of the phase."""
+    cv = hc.BN254
+    fr = cv.fr
+    p = fr.p
+    t_phase = time.perf_counter()
+    steps, launches, shapes = {}, {}, {}
+    r1cs, wit = plonk_circuit(fr)
+    n = fflonk_setup._domain(r1cs.n_constraints + 1)    # + the public-input row
+    n16 = fflonk_setup._domain(FFLONK_PTAU_CONSTRAINTS + 1)
+    n_srs = 9 * n + 18
+
+    # the setup's host work on the SRS scalars, alone: tau powers by running
+    # products (as setup_from_secrets takes them), then their 16-bit limbs
+    t = time.perf_counter()
+    taus, x = [], 1
+    for _ in range(n_srs):
+        taus.append(x)
+        x = x * FFLONK_TAU % p
+    steps["tau_powers_host"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    ftorch.np_from_ints(fr, taus)
+    steps["tau_limbs_host"] = (time.perf_counter() - t) * 1e3
+    log(f"  {n_srs} tau powers on the host {steps['tau_powers_host']:.0f} ms, their "
+        f"limbs {steps['tau_limbs_host']:.0f} ms")
+
+    clock = RoundClock("start")
+    with recorded_shapes() as shapes["setup 2^18"]:
+        reset_counts()
+        steps["setup_from_secrets"], zbytes = wall_ms(
+            lambda: fflonk_setup.setup_from_secrets(r1cs, FFLONK_TAU, logger=clock,
+                                                    device=dev))
+        launches["setup"] = counts()
+    setup_steps = clock.rounds_ms(time.perf_counter())
+    log(f"  setup_from_secrets 2^18: {steps['setup_from_secrets']:.0f} ms "
+        f"({len(zbytes) / 1e6:.0f} MB); steps ms {json.dumps(setup_steps)}; "
+        f"launches {launches['setup']}")
+    check(launches["setup"]["field_ops"] > 0 and launches["setup"]["msm_scan"] == 1
+          and launches["setup"]["digit_mm_norm"] > 0,
+          "the FFLONK setup did not launch K-field, one K-scan (C0) and K-mm-norm")
+    # where the SRS step's time goes: its batched double-and-add once more,
+    # under the profiler, against the step's unprofiled time
+    log("  the SRS points once more under the profiler:")
+    srs_busy = profile_busy(
+        lambda: groth16_setup._points_from_scalars(cv, taus, False, dev),
+        setup_steps["SRS points"])
+    del taus
+    t = time.perf_counter()
+    zk = read_fflonk_zkey(zbytes)
+    steps["read_fflonk_zkey"] = (time.perf_counter() - t) * 1e3
+    check(zk.domain_size == n and zk.ptau[2].shape[0] == n_srs,
+          f"FFLONK key: power {zk.power}, SRS {zk.ptau[2].shape[0]} points")
+    srs_spot_check(cv, zk, FFLONK_TAU, (0, 1, 2, n, n_srs - 1))
+    log(f"  read_fflonk_zkey {steps['read_fflonk_zkey']:.0f} ms; SRS points 0, 1, 2, "
+        f"{n} and {n_srs - 1} == [tau^i]G1 on host bigints")
+    del zbytes
+
+    # setup_from_ptau at 2^16 from phase 10's .ptau, against setup_from_secrets
+    # with that .ptau's tau (its section 2 is [tau^i]G1, section 3 [tau^i]G2)
+    r16, _ = plonk_circuit(fr, FFLONK_PTAU_CONSTRAINTS)
+    with recorded_shapes() as shapes["setup 2^16"]:
+        reset_counts()
+        steps["setup_from_ptau_2^16"], zp = wall_ms(
+            lambda: fflonk_setup.setup_from_ptau(r16, ptau, device=dev))
+        launches["setup_from_ptau_2^16"] = counts()
+        steps["setup_from_secrets_2^16"], zs = wall_ms(
+            lambda: fflonk_setup.setup_from_secrets(r16, SETUP_SECRETS["tau"], device=dev))
+    check(read_fflonk_zkey(zp).domain_size == n16, "the FFLONK .ptau key has another domain")
+    check(zp == zs, "FFLONK setup_from_ptau differs from setup_from_secrets")
+    log(f"  setup_from_ptau 2^16 from phase 10's power-19 .ptau (held from that phase): "
+        f"{steps['setup_from_ptau_2^16']:.0f} ms, launches {launches['setup_from_ptau_2^16']}; "
+        f"== setup_from_secrets with its tau ({steps['setup_from_secrets_2^16']:.0f} ms), "
+        f"{len(zp)} bytes")
+    del zp, zs, r16
+
+    b = list(range(301, 311))
+    steps["first_prove"], _ = wall_ms(lambda: fflonk.prove(zk, wit, b=b, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_shapes() as shapes["prove"]:
+        reset_counts()
+        prove_ms, (proof, publics) = wall_ms(lambda: fflonk.prove(zk, wit, b=b, device=dev))
+        launches["prove"] = counts()
+    peak = torch.cuda.max_memory_allocated()
+    pl = launches["prove"]
+    log(f"  first prove (uploads the key) {steps['first_prove']:.0f} ms; counted warm prove "
+        f"{prove_ms:.1f} ms, peak device memory {peak / 2**30:.2f} GiB; launches {pl}")
+    log(f"  prove shapes: {shapes_json(shapes['prove'])}")
+    check(pl["field_ops"] > 0 and pl["msm_scan"] == 4 and pl["digit_mm_norm"] > 0
+          and pl["digit_mm"] == 0,
+          "FFLONK path: expected K-field, 4 K-scan, K-mm-norm and no K-mm launches")
+    vk = fflonk.export_verification_key(zk)
+    t = time.perf_counter()
+    check(fflonk.verify(vk, publics, proof), "the FFLONK 2^18 proof fails the pairing check")
+    steps["verify"] = (time.perf_counter() - t) * 1e3
+    bad = [str(int(publics[0]) + 1)] + publics[1:]
+    check(not fflonk.verify(vk, bad, proof), "tampered public accepted (FFLONK)")
+    bad_proof = json.loads(json.dumps(proof))
+    bad_proof["evaluations"]["a"] = str(int(bad_proof["evaluations"]["a"]) + 1)
+    check(not fflonk.verify(vk, publics, bad_proof), "tampered evaluation accepted (FFLONK)")
+    log(f"  the prove's own checks held (grand product 1, W2 remainder 0); pairing check "
+        f"passes in {steps['verify']:.0f} ms; tampered public and evaluation rejected")
+
+    ms = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FFLONK_PROVES):
+        t, got = wall_ms(lambda: fflonk.prove(zk, wit, b=b, device=dev))
+        ms.append(t)
+        check(json.dumps(got) == json.dumps([proof, publics]), "warm FFLONK proofs differ")
+    warm = {"median_ms": float(np.median(ms)), "min_ms": min(ms), "max_ms": max(ms),
+            "all_ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  {FFLONK_PROVES} warm proves: median {warm['median_ms']:.1f} ms, spread "
+        f"{warm['min_ms']:.1f} .. {warm['max_ms']:.1f} ms, peak {warm['peak_gib']:.2f} GiB")
+    clock = RoundClock()
+    fflonk.prove(zk, wit, b=b, device=dev, logger=clock)
+    torch.cuda.synchronize()
+    rounds = clock.rounds_ms(time.perf_counter())
+    log("  rounds ms: " + json.dumps(rounds))
+    busy = profile_busy(lambda: fflonk.prove(zk, wit, b=b, device=dev), warm["median_ms"])
+
+    # the kernels at every shape the phase gave them.  K-scan's input shape
+    # follows the point count alone: each C0 commitment (one K-scan shape a
+    # setup) takes the first 8n SRS points, the prove's commitments all of it
+    srs = fflonk._dev_key(zk, dev)["ptau"]
+    scans = []
+    for path, m in (("setup 2^18", 8 * n), ("setup 2^16", 8 * n16), ("prove", n_srs)):
+        seen = shapes[path]["msm_scan"]
+        check(len(seen) == 1, f"FFLONK {path}: K-scan shapes {dict(seen)}")
+        scans.append(scan_case(cv, "g1", tuple(a[..., :m] for a in srs),
+                               rand_field(fr, m, dev, gen), seen, "fflonk " + path,
+                               rate32, errs))
+    norm_shapes = collections.Counter()
+    for seen in shapes.values():
+        norm_shapes.update(seen["digit_mm_norm"])
+        check(not seen["digit_mm"], "the FFLONK phase launched K-mm")
+    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "fflonk", errs)
+             for sh, k in sorted(norm_shapes.items())]
+    del srs
+    total = time.perf_counter() - t_phase
+    log(f"  FFLONK phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"  FFLONK phase total {total:.1f} s")
+    return {"steps_ms": steps, "setup_steps_ms": setup_steps, "srs_busy_ms": srs_busy,
+            "prove_ms": prove_ms, "peak_gib": peak / 2**30, "warm": warm,
+            "rounds_ms": rounds, "busy_ms": busy,
+            "launches": launches, "total_s": total, "scans": scans, "norms": norms}
+
 
 
 def sass_tensor_core_counts():
@@ -1417,9 +1605,16 @@ def main():
     setup = phase_setup(dev, gen, errs, rate32)
     sl = setup["launches"]
     entries["msm_scan"].append(setup.pop("scan"))
+    ptau = setup.pop("ptau")
+    torch.cuda.empty_cache()
+    log(f"[FFLONK at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
+    ff = phase_fflonk(dev, gen, errs, rate32, ptau)
+    del ptau
+    fl = ff["launches"]
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
-    # for K-mm, which no prove runs (the NTT path's).  `ms`, `plain_ms` and
+    # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
+    # FFLONK prove's, `launches_fflonk_setup` its setups'.  `ms`, `plain_ms` and
     # `bound_ms` belong to `shape`, the shape that path gave the kernel most
     # often.  `shapes` lists every shape the paths gave the kernel (K-field
     # has too many), each with its own launches, error, times and bound.
@@ -1433,11 +1628,12 @@ def main():
          "snarkjs_tpu/fields/fpal.py:449",
          dict(entries["field_ops"], shape=[16, 1 << 20]), []),
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
-         "snarkjs_tpu/curves/msm_tpu.py:213", pscan, [pscan] + entries["msm_scan"]),
+         "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
+         [pscan] + entries["msm_scan"] + ff["scans"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
-         "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big, [norm_big] + pnorms),
+         "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big, [norm_big] + pnorms + ff["norms"]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -1448,14 +1644,19 @@ def main():
                  launches_plonk=pl[kname], launches_ntt_path=nl[kname],
                  launches_setup=sum(c[kname] for c in sl.values()),
                  launches_setup_by_step={step: c[kname] for step, c in sl.items()},
+                 launches_fflonk=fl["prove"][kname],
+                 launches_fflonk_setup={step: c[kname] for step, c in fl.items()
+                                        if step != "prove"},
                  shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
         kernels.append(k)
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
+    kernels[0]["launches_by_op_fflonk"] = fl["prove"]["field_by_op"]
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
     log(f"setup phase: {json.dumps(setup)}")
+    log(f"fflonk phase: {json.dumps({k: v for k, v in ff.items() if k not in ('scans', 'norms')})}")
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,10 +1,11 @@
 """Carry a prover's state from the JAX package into the port.
 
 For a prover the "weights" are the proving key and the witness.  These
-functions take any object with the fields of snarkjs_tpu's `Groth16Zkey` or
-`PlonkZkey` (formats/zkey.py) or `Witness` (formats/wtns.py), duck-typed: arrays as
-numpy (or anything `np.asarray` takes), points as host ints, the curve by
-name.  Nothing of snarkjs_tpu is imported.
+functions take any object with the fields of snarkjs_tpu's `Groth16Zkey`,
+`PlonkZkey` or `FflonkZkey` (formats/zkey.py) or `Witness`
+(formats/wtns.py), duck-typed: arrays as numpy (or anything `np.asarray`
+takes), points as host ints, the curve by name.  Nothing of snarkjs_tpu is
+imported.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import numpy as np
 
 from .curves.host_curve import get_curve
 from .formats.wtns import Witness
-from .formats.zkey import Groth16Zkey, PlonkZkey
+from .formats.zkey import FflonkZkey, Groth16Zkey, PlonkZkey
 
 
 def _arrays(t):
@@ -65,6 +66,27 @@ def plonk_zkey_from_numpy(src, device=None) -> PlonkZkey:
 
         _dev_key(zk, devmod.resolve(device),
                  min(zk.domain_size + 6, zk.ptau[2].shape[0]))
+    return zk
+
+
+def fflonk_zkey_from_numpy(src, device=None) -> FflonkZkey:
+    """The port's FflonkZkey from a JAX-package one.  With `device`, the key's
+    sections and SRS are uploaded there at once (else at the first proof)."""
+    ints = ("n8q", "n8r", "n_vars", "n_public", "domain_size", "power",
+            "n_additions", "n_constraints", "k1", "k2", "w3", "w4", "w8", "wr")
+    arrays = ("a_map", "b_map", "c_map", "ql_p4", "qr_p4", "qm_p4", "qo_p4",
+              "qc_p4", "sigma1_p4", "sigma2_p4", "sigma3_p4", "lagrange", "ptau",
+              "c0_coefs")
+    zk = FflonkZkey(
+        curve=get_curve(src.curve.name),
+        **{k: int(getattr(src, k)) for k in ints}, x_2=src.x_2, c0=src.c0,
+        additions={k: np.array(v) for k, v in src.additions.items()},
+        **{k: _arrays(getattr(src, k)) for k in arrays})
+    if device is not None:
+        from . import device as devmod
+        from .protocols.fflonk import _dev_key
+
+        _dev_key(zk, devmod.resolve(device))
     return zk
 
 

@@ -121,9 +121,9 @@ def g1_add(cv, P, Q):
     if x1 == x2:
         if (y1 + y2) % p == 0:
             return None
-        lam = (3 * x1 * x1) * pow(2 * y1, p - 2, p) % p
+        lam = (3 * x1 * x1) * tw.inv_mod(2 * y1, p) % p
     else:
-        lam = (y2 - y1) * pow(x2 - x1, p - 2, p) % p
+        lam = (y2 - y1) * tw.inv_mod(x2 - x1, p) % p
     x3 = (lam * lam - x1 - x2) % p
     y3 = (lam * (x1 - x3) - y1) % p
     return (x3, y3)

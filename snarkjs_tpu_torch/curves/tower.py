@@ -52,9 +52,16 @@ def f2_conj(x, p):
     return (x[0], (-x[1]) % p)
 
 
+def inv_mod(x, p):
+    """x^-1 mod p by the extended Euclid of `pow(x, -1, p)` (the same value
+    as Fermat's x^(p-2), at a fraction of the cost); 0 -> 0."""
+    x %= p
+    return pow(x, -1, p) if x else 0
+
+
 def f2_inv(x, p):
     a, b = x
-    t = pow(a * a + b * b, p - 2, p)
+    t = inv_mod(a * a + b * b, p)
     return (a * t % p, (-b * t) % p)
 
 

@@ -88,13 +88,15 @@ def _dev_points(zkey, dev):
 
 def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
           r: int | None = None, s: int | None = None, msm_cw: int = 16,
-          device=None, out: dict | None = None):
+          device=None, out: dict | None = None, logger=None):
     """Groth16 proof and public signals (reference src/groth16_prove.js:28-144).
 
     device: None means the card ("cuda"); raises without one.  r, s: the
     blinding scalars, drawn with `secrets` when not given.  out: if a dict,
-    receives the device P_odd and the five MSM results (host jacobian)."""
+    receives the device P_odd and the five MSM results (host jacobian).
+    logger: gets a `debug` line before the QAP and before each MSM."""
     dev = devmod.resolve(device)
+    log = logger.debug if logger else (lambda msg: None)
     cv = zkey.curve
     fr, fq = cv.fr, cv.fq
     if witness.q != fr.p:
@@ -107,6 +109,7 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     co = zkey.coeffs
     idx = lambda a: torch.from_numpy(a.astype("int64")).to(dev)
     wit = ftorch.to_tensor(witness.values, dev)
+    log("QAP: buildABC + 6 NTTs")
     p_odd = qap(ctx, zkey.domain_size, ftorch.to_tensor(co["val"], dev),
                 idx(co["m"]), idx(co["c"]), idx(co["s"]), wit)
 
@@ -114,10 +117,15 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     g1m = msm_mod.MSMContext(fqctx, fq, extension=1)
     g2m = msm_mod.MSMContext(fqctx, fq, extension=2)
     a_pts, b1_pts, b2_pts, c_pts, h_pts = _dev_points(zkey, dev)
+    log("Multiexp A")
     pi_a = g1m.run(*a_pts, wit, cw=msm_cw)
+    log("Multiexp B1")
     pi_b1 = g1m.run(*b1_pts, wit, cw=msm_cw)
+    log("Multiexp B2")
     pi_b = g2m.run(*b2_pts, wit, cw=msm_cw)
+    log("Multiexp C")
     pi_c = g1m.run(*c_pts, wit[:, zkey.n_public + 1:], cw=msm_cw)
+    log("Multiexp H")
     res_h = g1m.run(*h_pts, p_odd, cw=msm_cw)
     if out is not None:
         out.update(p_odd=p_odd, A=pi_a, B1=pi_b1, B2=pi_b, C=pi_c, H=res_h)
@@ -256,3 +264,20 @@ def verify(vk: dict, publics, proof: dict, logger=None) -> bool:
         (vk_alpha_1, vk_beta_2),
     ])
 
+
+
+def export_solidity_calldata(proof: dict, publics) -> str:
+    """Hex calldata string (reference src/groth16_exportsoliditycalldata.js)."""
+    def p256(n):
+        return "0x" + format(int(n), "064x")
+
+    a = proof["pi_a"]
+    b = proof["pi_b"]
+    c = proof["pi_c"]
+    parts = [
+        f"[{p256(a[0])}, {p256(a[1])}]",
+        f"[[{p256(b[0][1])}, {p256(b[0][0])}],[{p256(b[1][1])}, {p256(b[1][0])}]]",
+        f"[{p256(c[0])}, {p256(c[1])}]",
+        "[" + ",".join(p256(x) for x in publics) + "]",
+    ]
+    return ",".join(parts)

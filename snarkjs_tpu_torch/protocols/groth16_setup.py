@@ -356,15 +356,17 @@ def _h_chain_u(cv, sec2, domain: int, device) -> bytes:
     return lem_to_u(cv, pcodec.g1_lem_to_bytes(fq, x, y, inf), m, False, device)
 
 
-def setup_from_ptau(r1cs: R1cs, ptau, device=None) -> bytes:
+def setup_from_ptau(r1cs: R1cs, ptau, logger=None, device=None) -> bytes:
     """`zkey new`: the Groth16 .zkey bytes composed from a prepared
     powers-of-tau file (reference src/zkey_new.js:36-181).
 
     Each point section is one segmented MSM over the Lagrange points of the
     circuit's power (reference :203-336 composes them per signal on worker
     threads, :338-501).  The blake2b circuit hash (csHash, :166-173) lands in
-    section 10.  device: None means the card ("cuda"); raises without one."""
+    section 10.  logger: gets a `debug` line before each step.  device: None
+    means the card ("cuda"); raises without one."""
     device = devmod.resolve(device)
+    log = logger.debug if logger else (lambda msg: None)
     cv = ptau.curve
     fr, fq = cv.fr, cv.fq
     if r1cs.prime != fr.p:
@@ -420,11 +422,15 @@ def setup_from_ptau(r1cs: R1cs, ptau, device=None) -> bytes:
             scal = np.concatenate([scal, ones], axis=1)
         return _compose(cv, g2, sources, src_, base, seg_, scal, n_out, device)
 
+    log("Computing A")
     A_lem = compose(False, [ltau1], m == 0, 0 * m, s, n_vars, extra_src=0)
+    log("Computing B1")
     B1_lem = compose(False, [ltau1], m == 1, 0 * m, s, n_vars)
+    log("Computing B2")
     B2_lem = compose(True, [ltau2], m == 1, 0 * m, s, n_vars)
     # C (s > nPublic) and IC (s <= nPublic): the source follows m (A side ->
     # beta, B side -> alpha, C side -> tau); IC adds beta * L_{nCon+s}
+    log("Computing C and IC")
     C_lem = compose(False, [lbeta, lalpha, ltau1], s > n_public, m,
                     s - n_public - 1, n_vars - n_public - 1)
     IC_lem = compose(False, [lbeta, lalpha, ltau1], s <= n_public, m, s,
@@ -437,6 +443,7 @@ def setup_from_ptau(r1cs: R1cs, ptau, device=None) -> bytes:
     H_lem = np.ascontiguousarray(block2n[1::2]).tobytes()
 
     # csHash: section hashes in write order (:338-343, :504-577)
+    log("Circuit hash")
     def hash_section(count, u):
         cs.update(int(count).to_bytes(4, "big"))
         cs.update(u)

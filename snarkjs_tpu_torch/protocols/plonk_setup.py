@@ -364,10 +364,16 @@ def _write_plonk_zkey(cv, r1cs: R1cs, lowered, commit, ptau_lem: bytes,
     return w.tobytes()
 
 
-def setup_files(r1cs_path: str, zkey_path: str, tau: int, device=None):
-    """Read an .r1cs, write the PLONK .zkey for the secret `tau`."""
+def setup_files(r1cs_path: str, zkey_path: str, tau: int | None = None,
+                device=None):
+    """Read an .r1cs, write the PLONK .zkey for the secret `tau` (drawn with
+    `secrets` when None: 31 random bytes, little-endian)."""
+    import secrets
+
     from ..formats.r1cs import read_r1cs
 
+    if tau is None:
+        tau = int.from_bytes(secrets.token_bytes(31), "little")
     data = setup_from_secrets(read_r1cs(r1cs_path), tau, device)
     with open(zkey_path, "wb") as f:
         f.write(data)

@@ -5,7 +5,8 @@ witnesses go through both packages on the CPU; proofs must be byte-equal.
 Also checks the port's zkey reader and the stored chip-smoke fixture.
 
 `python -m tests.test_torch_groth16` rewrites snarkjs_tpu_torch/fixtures/:
-the files below and the .ptau setup fixtures of tests/test_torch_groth16_setup.py.
+the files below and the .ptau setup fixtures of tests/test_torch_groth16_setup.py
+(the equal-power key too).
 """
 
 import functools
@@ -85,6 +86,29 @@ def test_proof_bytes_equal_jax_and_host(curve, nc):
         assert not verify(vk, tampered, proof)
 
 
+def test_solidity_calldata_equal_jax():
+    """`export_solidity_calldata` on the stored fixture proof, string for
+    string against the JAX function."""
+    with open(os.path.join(FIXTURES, "tiny_bn128_proof.json")) as f:
+        want = json.load(f)
+    got = tg.export_solidity_calldata(want["proof"], want["publicSignals"])
+    assert got == jg.export_solidity_calldata(want["proof"], want["publicSignals"])
+    assert got.startswith("[0x") and got.count("0x") == 2 + 4 + 2 + 1
+
+
+def test_prove_logger_matches_jax():
+    """`logger` gets the JAX prover's debug lines, in its order; the proof is
+    the one made without a logger."""
+    _, _, zk, wit = _tiny("bn128", 40)
+    logged = {"jax": [], "torch": []}
+    mk = lambda k: type("L", (), {"debug": lambda self, m: logged[k].append(m)})()
+    jg.prove(zk, wit, r=R, s=S, logger=mk("jax"))
+    got = tg.prove(convert.zkey_from_numpy(zk), convert.witness_from_numpy(wit),
+                   r=R, s=S, device="cpu", logger=mk("torch"))
+    assert json.dumps(got) == json.dumps(_jax_proof("bn128", 40))
+    assert logged["torch"] == logged["jax"] and len(logged["jax"]) == 6
+
+
 def test_zkey_reader_matches_jax():
     _, _, zk, _ = _tiny("bn128", 40)
     data = groth16_setup.write_groth16_zkey(zk)
@@ -139,10 +163,14 @@ def test_prove_files_on_fixture():
 
 
 if __name__ == "__main__":
-    from tests.test_torch_groth16_setup import setup_fixture_files
+    from tests.test_torch_groth16_setup import equal_power_fixture_files, setup_fixture_files
 
     os.makedirs(FIXTURES, exist_ok=True)
-    for name, data in {**fixture_files(), **setup_fixture_files()}.items():
+    files = {**fixture_files(), **setup_fixture_files()}
+    with open(os.path.join(FIXTURES, "tiny_p4_bn128.ptau"), "wb") as f:
+        f.write(files["tiny_p4_bn128.ptau"])
+    files.update(equal_power_fixture_files())
+    for name, data in files.items():
         with open(os.path.join(FIXTURES, name), "wb") as f:
             f.write(data)
         print(name, len(data))

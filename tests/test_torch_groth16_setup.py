@@ -10,7 +10,9 @@ snarkjs_tpu_torch/fixtures/ with the JAX package's Groth16
 `setup_from_ptau` of `_tiny_circuit(3)` from it, because that JAX run takes
 minutes of XLA compiles on a CPU.  `test_setup_fixtures_regenerate` (marked
 slow) rebuilds both with the JAX package; `python -m tests.test_torch_groth16`
-rewrites them.
+rewrites them.  So does it for `tiny10_bn128_from_ptau.zkey`, the JAX key
+of `_tiny_circuit(10)`, whose domain is the .ptau's own power
+(`test_equal_power_fixture_regenerates`, also slow).
 """
 
 import importlib.util
@@ -36,6 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
 PTAU = "tiny_p4_bn128.ptau"
 PTAU_ZKEY = "tiny3_bn128_from_ptau.zkey"
+EQUAL_ZKEY = "tiny10_bn128_from_ptau.zkey"   # domain 16: the .ptau's own power
 TAU, ALPHA, BETA = 0x1234567890ABCDEF, 0x55555, 0x77777
 POWER = 4
 
@@ -57,10 +60,10 @@ def _torch_r1cs(r1cs):
     return tr1cs.R1cs(**{k: getattr(r1cs, k) for k in r1cs.__dataclass_fields__})
 
 
-def jax_ptau_bytes(power=POWER) -> bytes:
+def jax_ptau_bytes(power=POWER, curve="bn128") -> bytes:
     """The prepared .ptau one contribution of (TAU, ALPHA, BETA) leaves,
     built on host bigints with the JAX package."""
-    cv = jhc.get_curve("bn128")
+    cv = jhc.get_curve(curve)
     fr, fq = cv.fr, cv.fq
     n = 1 << power
     t = [pow(TAU, i, fr.p) for i in range(2 * n - 1)]
@@ -80,6 +83,13 @@ def setup_fixture_files() -> dict:
     data = jax_ptau_bytes()
     _, r1cs, _ = _circuit()
     return {PTAU: data, PTAU_ZKEY: jgs.setup_from_ptau(r1cs, jptau.read_ptau(data))}
+
+
+def equal_power_fixture_files() -> dict:
+    """The JAX package's Groth16 `setup_from_ptau` of `_tiny_circuit(10)`
+    (domain 16, the power of the stored .ptau) from that .ptau."""
+    _, r1cs, _ = _graft()._tiny_circuit(10, "bn128")
+    return {EQUAL_ZKEY: jgs.setup_from_ptau(r1cs, jptau.read_ptau(_fixture(PTAU)))}
 
 
 def _fixture(name) -> bytes:
@@ -107,6 +117,43 @@ def test_setup_from_ptau_bytes_equal_jax():
     _, r1cs, _ = _circuit()
     pt = tptau.read_ptau(_fixture(PTAU))
     assert tgs.setup_from_ptau(_torch_r1cs(r1cs), pt, device="cpu") == _fixture(PTAU_ZKEY)
+
+
+@pytest.mark.slow
+def test_equal_power_fixture_regenerates():
+    """Marked slow for the JAX `setup_from_ptau`'s XLA compiles."""
+    for name, data in equal_power_fixture_files().items():
+        assert _fixture(name) == data, name
+
+
+def test_setup_from_ptau_at_the_ptau_power_bytes_equal_jax():
+    """A circuit whose domain is the .ptau's own power: its H points come from
+    the top Lagrange block, the one preparePhase2 makes with a zero point in
+    place of tau^(2n - 1).  The port's key equals the JAX package's; sections
+    1-8 equal the exact key of `setup_from_secrets`, section 9 (H) does not."""
+    _, r1cs, _ = _graft()._tiny_circuit(10, "bn128")
+    tr = _torch_r1cs(r1cs)
+    assert tgs.domain_size_for(tr) == 1 << POWER
+    got = tgs.setup_from_ptau(tr, tptau.read_ptau(_fixture(PTAU)), device="cpu")
+    assert got == _fixture(EQUAL_ZKEY)
+    a = _sections(got)
+    b = _sections(tgs.write_groth16_zkey(
+        tgs.setup_from_secrets(tr, TAU, ALPHA, BETA, device="cpu")))
+    for sid in range(1, 9):
+        assert a[sid] == b[sid], sid
+    assert a[9] != b[9]
+
+
+def test_setup_from_ptau_logger_and_result():
+    """`logger` gets one line a step; the key is the same as without it."""
+    _, r1cs, _ = _circuit()
+    msgs = []
+    logger = type("L", (), {"debug": lambda self, m: msgs.append(m)})()
+    got = tgs.setup_from_ptau(_torch_r1cs(r1cs), tptau.read_ptau(_fixture(PTAU)),
+                              logger=logger, device="cpu")
+    assert got == _fixture(PTAU_ZKEY)
+    assert msgs == ["Computing A", "Computing B1", "Computing B2", "Computing C and IC",
+                    "Circuit hash"]
 
 
 def test_setup_from_ptau_equals_setup_from_secrets_in_sections_1_to_9():

@@ -118,6 +118,23 @@ def test_process_constraints_matches_jax(jax_side):
     assert got == want
 
 
+def test_setup_files_draws_tau_when_none(tmp_path, monkeypatch):
+    """`setup_files` with no tau draws one (31 random bytes, as the JAX
+    function does), passes it to `setup_from_secrets` and writes its bytes;
+    a given tau is passed as it is."""
+    from snarkjs_tpu_torch.formats import r1cs as r1cs_mod
+
+    taus = []
+    monkeypatch.setattr(r1cs_mod, "read_r1cs", lambda path: path)
+    monkeypatch.setattr(tsetup, "setup_from_secrets",
+                        lambda r1cs, tau, device=None: taus.append(tau) or b"zkey")
+    out = tmp_path / "c.zkey"
+    assert tsetup.setup_files("c.r1cs", str(out)) == out.read_bytes() == b"zkey"
+    tsetup.setup_files("c.r1cs", str(out))
+    tsetup.setup_files("c.r1cs", str(out), TAU)
+    assert 0 < taus[0] < 1 << 248 and taus[0] != taus[1] and taus[2] == TAU
+
+
 def test_check_witness_matches_jax(jax_side):
     from snarkjs_tpu.formats import r1cs as jr1cs
 

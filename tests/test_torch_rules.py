@@ -38,6 +38,7 @@ PORT_MODULES = [
     "snarkjs_tpu_torch.curves.gops", "snarkjs_tpu_torch.curves.jac",
     "snarkjs_tpu_torch.curves.msm", "snarkjs_tpu_torch.formats.ptau",
     "snarkjs_tpu_torch.utils.blake2b", "snarkjs_tpu_torch.ceremony.ptau_ops",
+    "snarkjs_tpu_torch.protocols.fflonk", "snarkjs_tpu_torch.protocols.fflonk_setup",
 ]
 
 
@@ -134,6 +135,24 @@ def test_plonk_default_device_raises_without_cuda(monkeypatch):
                        s=np.zeros(0, np.int32), vals=np.zeros((16, 0), np.uint32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsetup.setup_from_secrets(empty, 5)
+
+
+def test_fflonk_default_device_raises_without_cuda(monkeypatch):
+    """FFLONK's prove and its three setups default to the card and raise
+    without one."""
+    from snarkjs_tpu_torch.protocols import fflonk, fflonk_setup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
+    r1cs, pt = _setup_inputs()
+    for call in (lambda: fflonk.prove_files(os.path.join(fx, "tiny_fflonk_bn128.zkey"),
+                                            os.path.join(fx, "tiny_fflonk_bn128.wtns"),
+                                            b=list(range(1, 11))),
+                 lambda: fflonk_setup.setup_from_secrets(r1cs, 5),
+                 lambda: fflonk_setup.setup_from_ptau(r1cs, pt),
+                 lambda: fflonk_setup.setup_from_srs(r1cs, b"", None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_setup_parts_raise_without_cuda(monkeypatch):
@@ -333,3 +352,20 @@ def test_k_scan_matches_plain_on_card(card, curve, group, n, lanes):
     got = msm_gpu.scan(fq, m.b, m.ext, xyT)
     assert msm_gpu.LAUNCHES[0] == before + 1
     assert torch.equal(got, msm_gpu.scan_plain(fq, m.b, m.ext, xyT))
+
+
+@pytest.mark.cuda
+def test_fflonk_prove_on_card_equals_stored_proof(card):
+    """The stored FFLONK key with additions, proved on the card (K-field,
+    K-scan), gives the proof the JAX package made on the CPU, byte for byte."""
+    import json
+
+    from snarkjs_tpu_torch.protocols import fflonk
+
+    fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
+    with open(os.path.join(fx, "tiny_fflonk_adds_bn128_proof.json")) as f:
+        want = json.load(f)
+    got = fflonk.prove_files(os.path.join(fx, "tiny_fflonk_adds_bn128.zkey"),
+                             os.path.join(fx, "tiny_fflonk_adds_bn128.wtns"),
+                             b=want["b"], device=card)
+    assert json.dumps(list(got)) == json.dumps([want["proof"], want["publicSignals"]])
