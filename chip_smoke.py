@@ -79,7 +79,21 @@ Phases (any failure exits non-zero before the last line):
      spread, peak memory), rounds 1-5 through a logger, one prove under
      torch.profiler; then K-scan and K-mm-norm against their plain versions
      at every shape the phase gave them, each with its time and bound;
- 13. K-scan's registers, local memory and spills, the kernels line, then the
+ 13. the powers-of-tau ceremony on bn128 at power 19: phase 10's secrets are
+     the private keys that ChaCha(CEREMONY_SEED) gives `keypair.create_ptau_key`
+     on a blank accumulator's first challenge, so one `contribute` to
+     `new_accumulator` must give phase 10's sections 2-6 byte for byte, and
+     `prepare_phase2` of that file its sections 12-15; `verify` (with the
+     Lagrange check, a fixed numpy Generator) accepts the prepared file and
+     rejects a copy with two tauG1 points swapped; export_challenge ->
+     challenge_contribute -> import_response -> beacon -> verify accepts; a
+     response with one flipped point byte is refused; truncate to power 12,
+     convert (section 12 equal) and export_json.  Launch counts set to 0 just
+     before contribute, prepare_phase2 and verify and read just after, beside
+     the counts predicted from the code; one G1 and one G2 stage of the
+     batched group iNTT timed and profiled alone; K-field, K-scan and
+     K-mm-norm against their plain versions at the shapes the phase gave them;
+ 14. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
@@ -92,6 +106,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -103,6 +118,7 @@ import numpy as np
 import torch
 
 from snarkjs_tpu_torch import _build
+from snarkjs_tpu_torch.ceremony import keypair, ptau_ops
 from snarkjs_tpu_torch.curves import host_curve as hc
 from snarkjs_tpu_torch.curves import msm as msm_mod
 from snarkjs_tpu_torch.curves import msm_gpu
@@ -118,6 +134,7 @@ from snarkjs_tpu_torch.ntt import ntt_mm
 from snarkjs_tpu_torch.poly import fops
 from snarkjs_tpu_torch.protocols import groth16, groth16_setup, plonk, plonk_setup
 from snarkjs_tpu_torch.protocols import fflonk, fflonk_setup
+from snarkjs_tpu_torch.utils.chacha import ChaCha
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "snarkjs_tpu_torch", "fixtures")
@@ -729,12 +746,12 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
     return parts, paired
 
 
-def scan_case(cv, group, pts, scal, seen, path, rate32, errs):
+def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None):
     """K-scan against its plain version on the input `run` builds for these
-    points and scalars, which must have a shape recorded in `seen`; its time
-    and bound at that shape."""
-    m = msm_gpu.get_msm(cv.name, group, cw=16)
-    xyT = m.scan_input(*pts, scal)
+    points and scalars (window digits of cw bits), which must have a shape
+    recorded in `seen`; its time and bound at that shape."""
+    m = msm_gpu.get_msm(cv.name, group, cw=cw)
+    xyT = m.scan_input(*pts, scal, lanes=lanes)
     shape = tuple(xyT.shape)
     check(shape in seen, f"K-scan {group} input {shape} is no shape of the {path} prove")
     ms = cuda_ms(lambda: msm_gpu.scan(cv.fq, m.b, m.ext, xyT), 3)
@@ -1143,9 +1160,21 @@ def phase_plonk_times(dev, zk, wit, b, prove_ms):
 
 # ------------------------------------------------------------- setup phase
 
-SETUP_SECRETS = {"tau": 0x2F0A_51C3_99D7_6E14_B8A2_0C5D, "alpha": 0x6B2E_91D4_C3F7,
-                 "beta": 0x3D8C_A7F1_0E65}
 SETUP_POWER = 19   # the .ptau: one power above the 2^18 circuits
+CEREMONY_SEED = [0x5EED_0001, 0x5EED_0002, 0x5EED_0003, 0x5EED_0004,
+                 0x5EED_0005, 0x5EED_0006, 0x5EED_0007, 0x5EED_0008]
+
+
+@functools.lru_cache(maxsize=None)
+def setup_secrets():
+    """The .ptau's secrets: the private keys that one contribution to a blank
+    power-19 bn128 accumulator draws from ChaCha(CEREMONY_SEED)
+    (keypair.create_ptau_key on the accumulator's first challenge), so phase
+    13's `contribute` must give phase 10's sections 2-6."""
+    cv = hc.BN254
+    key = keypair.create_ptau_key(cv, ptau_fmt.first_challenge_hash(cv, SETUP_POWER),
+                                  ChaCha(CEREMONY_SEED))
+    return {k: key[k]["prvKey"] for k in ("tau", "alpha", "beta")}
 
 
 def ptau_scalars(cv, power, tau, alpha, beta):
@@ -1204,7 +1233,7 @@ def zkey_sections(data):
 
 def phase_setup(dev, gen, errs, rate32):
     """Groth16 and PLONK setup from a prepared .ptau on the card: the
-    power-19 .ptau built from SETUP_SECRETS (through `tobytes`/`read_ptau`),
+    power-19 .ptau built from setup_secrets() (through `tobytes`/`read_ptau`),
     K-field held at the build's batch size and at a ragged one, the Groth16
     key of the 200,000-constraint chain with circom's coefficients from it
     against the one from `setup_from_secrets` (sections 1-9 equal; the chain
@@ -1214,25 +1243,13 @@ def phase_setup(dev, gen, errs, rate32):
     back (key "ptau") for the FFLONK phase."""
     cv = hc.BN254
     fr = cv.fr
-    sec = SETUP_SECRETS
+    sec = setup_secrets()
     t_phase = time.perf_counter()
     steps, launches = {}, {}
 
     # K-field at the build's batch of 2^21 and at a size that is no multiple
     # of its 256-thread block (the segmented sums' rounds give it such sizes)
-    ctx = ftorch.get_ctx("bn254_fq")
-    for n in (1 << 21, (1 << 18) + 37):
-        a, b = rand_field(ctx.fp, n, dev, gen), rand_field(ctx.fp, n, dev, gen).flip(1).contiguous()
-        for op, fn in (("add", ftorch.add), ("sub", ftorch.sub),
-                       ("mont_mul", ftorch.mont_mul)):
-            got = fn(ctx, a, b)
-            with ftorch.plain_versions():
-                want = fn(ctx, a, b)
-            e = max_abs_err(got, want)
-            check(e == 0, f"K-field {op} bn254_fq at {n} differs from plain ({e})")
-            errs["field_ops"] = max(errs["field_ops"], e)
-    del a, b, got, want
-    log("  K-field bn254_fq: add sub mont_mul == plain at 2^21 and 2^18 + 37")
+    field_cases(dev, gen, errs, (1 << 21, (1 << 18) + 37), "the setup's batches")
 
     t = time.perf_counter()
     scalars = ptau_scalars(cv, SETUP_POWER, sec["tau"], sec["alpha"], sec["beta"])
@@ -1452,7 +1469,7 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
             lambda: fflonk_setup.setup_from_ptau(r16, ptau, device=dev))
         launches["setup_from_ptau_2^16"] = counts()
         steps["setup_from_secrets_2^16"], zs = wall_ms(
-            lambda: fflonk_setup.setup_from_secrets(r16, SETUP_SECRETS["tau"], device=dev))
+            lambda: fflonk_setup.setup_from_secrets(r16, setup_secrets()["tau"], device=dev))
     check(read_fflonk_zkey(zp).domain_size == n16, "the FFLONK .ptau key has another domain")
     check(zp == zs, "FFLONK setup_from_ptau differs from setup_from_secrets")
     log(f"  setup_from_ptau 2^16 from phase 10's power-19 .ptau (held from that phase): "
@@ -1533,6 +1550,231 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
 
 
 
+# ------------------------------------------------------------ ceremony phase
+
+RESPONSE_SEED = [0xC0FF_EE01, 0xC0FF_EE02, 0xC0FF_EE03, 0xC0FF_EE04, 5, 6, 7, 8]
+BEACON_HASH = bytes.fromhex("5a" * 32)
+VERIFY_SEED = 1913
+CEREMONY_SMALL_POWER = 12   # convert and export_json: the JSON stays small
+STAGE_PROFILED = 10         # the group iNTT stage timed alone and profiled
+
+
+def ceremony_predicted(power):
+    """K-field launches that the batched double-and-adds of `contribute` and
+    `prepare_phase2` make at `power`, counted from the code: 71 a G1 step
+    and 277 a G2 step (jac_dbl + jac_add + select over gops), 254 steps a
+    batch.  contribute: one G1 batch (sections 2, 4, 5) and one G2 batch
+    (3, 6).  prepare_phase2: stages 1 .. K-1 of each group's largest block
+    2^K (K = power + 1 on G1, power on G2), one batch each.  Beside them the
+    JAX structure's count: k + 1 batches a block of 2^k above 2^8 (smaller
+    ones on the host), one block of each size a section."""
+    g1, g2 = 254 * 71, 254 * 277
+    jax = lambda top: sum(k + 1 for k in range(9, top + 1))
+    return {"contribute": g1 + g2, "prepare_phase2": power * g1 + (power - 1) * g2,
+            "prepare_phase2_jax_structure":
+                (jax(power + 1) + 2 * jax(power)) * g1 + jax(power) * g2}
+
+
+def field_cases(dev, gen, errs, sizes, what):
+    """K-field add / sub / mont_mul on bn254 Fq against the plain versions at
+    the given element counts (shapes a path gave the kernel)."""
+    ctx = ftorch.get_ctx("bn254_fq")
+    for n in sizes:
+        a, b = rand_field(ctx.fp, n, dev, gen), rand_field(ctx.fp, n, dev, gen).flip(1).contiguous()
+        for op, fn in (("add", ftorch.add), ("sub", ftorch.sub), ("mont_mul", ftorch.mont_mul)):
+            got = fn(ctx, a, b)
+            with ftorch.plain_versions():
+                want = fn(ctx, a, b)
+            e = max_abs_err(got, want)
+            check(e == 0, f"K-field {op} bn254_fq at {n} differs from plain ({e})")
+            errs["field_ops"] = max(errs["field_ops"], e)
+    log(f"  K-field bn254_fq: add sub mont_mul == plain at {list(sizes)} ({what})")
+
+
+def ceremony_scans(cv, seen, pts, gen, rate32, errs):
+    """K-scan against its plain version at every shape `verify` gave it:
+    the input is rebuilt from the .ptau's points (tiled) and random scalars
+    at the point count C * RL, which gives the recorded shape."""
+    out = []
+    dev = pts["g1"][0].device
+    for shape in sorted(seen):
+        nw, C, nin, RL = shape
+        group = "g1" if nin == cv.fq.nl + 1 else "g2"
+        cw = 16 if nw <= cv.fq.nl else 8
+        n = C * RL
+        x, y = pts[group]
+        tile = lambda a: tuple(tile(c) for c in a) if isinstance(a, tuple) else \
+            a.repeat(1, -(-n // a.shape[1]))[:, :n].contiguous()
+        scal = rand_field(cv.fr, n, dev, gen)
+        if cw == 8:
+            scal = torch.stack([scal & 0xFF, (scal >> 8) & 0xFF], dim=1).reshape(-1, n)
+        out.append(scan_case(cv, group, (tile(x), tile(y), torch.zeros(n, dtype=torch.bool,
+                                                                      device=dev)),
+                             scal, seen, "ceremony verify", rate32, errs, cw=cw, lanes=RL))
+    return out
+
+
+def stage_busy(cv, pt, g2, dev):
+    """One stage (STAGE_PROFILED) of preparePhase2's batched group iNTT on
+    every block of one group, alone: wall time, K-field launches and, under
+    the profiler, the device's busy share."""
+    sids = (3,) if g2 else (2, 4, 5)
+    blocks = [b for old in sids for b in ptau_ops._section_blocks(cv, pt, old, g2) if b[1]]
+    P, offs = ptau_ops._intt_lanes(cv, g2, blocks, dev)
+    stage = lambda: ptau_ops._intt_stage(cv, g2, P, offs, STAGE_PROFILED, [], dev)
+    reset_counts()
+    ms, lanes = wall_ms(stage)
+    c = counts()
+    busy = profile_busy(stage, ms)
+    del P
+    torch.cuda.empty_cache()
+    group = "G2" if g2 else "G1"
+    log(f"  preparePhase2 {group} stage {STAGE_PROFILED} alone: {ms:.0f} ms, {lanes} lanes "
+        f"multiplied, {c['field_ops']} K-field launches"
+        + ("" if busy is None else f", device busy {busy:.0f} ms ({100 * busy / ms:.1f} %)"))
+    return {"ms": ms, "lanes": lanes, "field_ops": c["field_ops"], "busy_ms": busy}
+
+
+def phase_ceremony(dev, gen, errs, rate32, ptau):
+    """The powers-of-tau ceremony on bn128 at power 19 (SETUP_POWER): one
+    `contribute` to a blank accumulator with ChaCha(CEREMONY_SEED) gives
+    phase 10's sections 2-6; `prepare_phase2` of that file gives its sections
+    12-15; `verify` accepts it and rejects a copy with two tauG1 points
+    swapped; export_challenge -> challenge_contribute -> import_response ->
+    beacon -> verify; a response with a flipped point byte is refused;
+    convert and export_json at power 12.  Launch counts set to 0 just before
+    contribute, prepare_phase2 and verify and read just after; one G1 and one
+    G2 stage of the group iNTT timed and profiled alone; K-field, K-scan and
+    K-mm-norm against their plain versions at the shapes the phase gave
+    them."""
+    cv = hc.BN254
+    power = SETUP_POWER
+    sz1 = 2 * cv.fq.n8
+    t_phase = time.perf_counter()
+    steps, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    pred = ceremony_predicted(power)
+
+    t = time.perf_counter()
+    acc = ptau_ops.new_accumulator(cv, power)
+    steps["new_accumulator"] = (time.perf_counter() - t) * 1e3
+    reset_counts()
+    steps["contribute"], (c1, rh1) = wall_ms(lambda: ptau_ops.contribute(
+        acc, name="chip_smoke", rng=ChaCha(CEREMONY_SEED), device=dev))
+    launches["contribute"] = counts()
+    del acc
+    key = {k: c1.contributions[-1].key[k]["prvKey"] for k in ("tau", "alpha", "beta")}
+    check(key == setup_secrets(), "the contribution's keys are not phase 10's secrets")
+    for sid in (2, 3, 4, 5, 6):
+        check(bytes(c1.sections[sid]) == bytes(ptau.sections[sid]),
+              f"contribute: section {sid} differs from phase 10's .ptau")
+    log(f"  contribute at power {power}: {steps['contribute']:.0f} ms, sections 2-6 == phase "
+        f"10's .ptau; K-field launches {launches['contribute']['field_ops']} (predicted "
+        f"{pred['contribute']} in the two double-and-adds, plus the powers, the affine "
+        f"forms and the codecs); response hash {rh1[:8].hex()}...")
+
+    reset_counts()
+    steps["prepare_phase2"], prep = wall_ms(lambda: ptau_ops.prepare_phase2(c1, device=dev))
+    launches["prepare_phase2"] = counts()
+    for sid in (12, 13, 14, 15):
+        check(bytes(prep.sections[sid]) == bytes(ptau.sections[sid]),
+              f"prepare_phase2: section {sid} differs from phase 10's .ptau")
+    log(f"  prepare_phase2 at power {power}: {steps['prepare_phase2']:.0f} ms, sections 12-15 "
+        f"== phase 10's .ptau; K-field launches {launches['prepare_phase2']['field_ops']} "
+        f"(predicted {pred['prepare_phase2']} in the stages' double-and-adds, plus the "
+        f"butterflies and the affine forms; the JAX structure: about "
+        f"{pred['prepare_phase2_jax_structure']})")
+
+    with recorded_shapes() as v_shapes:
+        reset_counts()
+        steps["verify"], ok = wall_ms(lambda: ptau_ops.verify(
+            prep, rng=np.random.default_rng(VERIFY_SEED), device=dev))
+        launches["verify"] = counts()
+    check(ok, "verify rejects the prepared .ptau")
+    bad = ptau_fmt.read_ptau(prep.tobytes())
+    s2 = bytearray(bad.sections[2])
+    s2[sz1:2 * sz1], s2[2 * sz1:3 * sz1] = s2[2 * sz1:3 * sz1], s2[sz1:2 * sz1]
+    bad.sections[2] = bytes(s2)
+    steps["verify_tampered"], ok = wall_ms(lambda: ptau_ops.verify(
+        bad, rng=np.random.default_rng(VERIFY_SEED), device=dev))
+    check(not ok, "verify accepts a .ptau with two tauG1 points swapped")
+    del bad, s2
+    log(f"  verify (with the Lagrange check): {steps['verify']:.0f} ms, True; launches "
+        f"{launches['verify']}; two tauG1 points swapped: False in "
+        f"{steps['verify_tampered']:.0f} ms")
+
+    steps["export_challenge"], ch = wall_ms(lambda: ptau_ops.export_challenge(c1, device=dev))
+    steps["challenge_contribute"], resp = wall_ms(lambda: ptau_ops.challenge_contribute(
+        cv, ch, rng=ChaCha(RESPONSE_SEED), device=dev))
+    steps["import_response"], c2 = wall_ms(lambda: ptau_ops.import_response(
+        c1, resp, name="response", device=dev))
+    steps["beacon"], (c3, _) = wall_ms(lambda: ptau_ops.beacon(c2, BEACON_HASH, 10, device=dev))
+    steps["verify_chain"], ok = wall_ms(lambda: ptau_ops.verify(
+        c3, rng=np.random.default_rng(VERIFY_SEED), device=dev))
+    check(ok and len(c3.contributions) == 3, "verify rejects contribute -> response -> beacon")
+    flipped = bytearray(resp)
+    flipped[64 + 2 * cv.fq.n8 + 5] ^= 1
+    t = time.perf_counter()
+    try:
+        c2b = ptau_ops.import_response(c1, bytes(flipped), name="flipped", device=dev)
+        refused = "verify False"
+        check(not ptau_ops.verify(c2b, rng=np.random.default_rng(VERIFY_SEED), device=dev),
+              "a response with a flipped point byte verifies")
+    except ValueError as e:
+        refused = f"import raised: {e}"
+    steps["flipped_response"] = (time.perf_counter() - t) * 1e3
+    log(f"  export_challenge {steps['export_challenge']:.0f} ms ({len(ch)} bytes), "
+        f"challenge_contribute {steps['challenge_contribute']:.0f} ms, import_response "
+        f"{steps['import_response']:.0f} ms, beacon {steps['beacon']:.0f} ms, verify "
+        f"{steps['verify_chain']:.0f} ms: True; flipped response byte: {refused}")
+    del ch, resp, c2, c3, flipped
+
+    # at power 12: the truncated file's top tauG1 block holds one more tau
+    # point than a power-12 preparePhase2 takes, so convert is held against
+    # prepare_phase2 of the truncated file
+    small = ptau_ops.truncate(prep, CEREMONY_SMALL_POWER)
+    steps["convert_p12"], conv = wall_ms(lambda: ptau_ops.convert(small, device=dev))
+    check(bytes(conv.sections[12]) == bytes(ptau_ops.prepare_phase2(small, device=dev)
+                                            .sections[12]),
+          "convert's section 12 differs from prepare_phase2's")
+    t = time.perf_counter()
+    js = ptau_ops.export_json(conv)
+    steps["export_json_p12"] = (time.perf_counter() - t) * 1e3
+    n12 = 1 << CEREMONY_SMALL_POWER
+    check(len(js["tauG1"]) == 2 * n12 - 1 and len(js["lTauG1"]) == CEREMONY_SMALL_POWER + 2
+          and js["tauG1"][1] == [str(v) for v in c1.contributions[0].tau_g1] + ["1"],
+          "export_json does not hold the file's points")
+    log(f"  power {CEREMONY_SMALL_POWER}: convert {steps['convert_p12']:.0f} ms (section 12 == "
+        f"prepare_phase2's), export_json {steps['export_json_p12']:.0f} ms")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del small, conv, js
+    torch.cuda.empty_cache()
+
+    stages = {"g1": stage_busy(cv, c1, False, dev), "g2": stage_busy(cv, c1, True, dev)}
+
+    # the kernels at the shapes the phase gave them
+    field_cases(dev, gen, errs, ((1 << 21) - 1, (1 << 19) + 1), "the ceremony's batches")
+    fq = cv.fq
+    n1, n2 = min(1 << 16, (2 << power) - 1), min(1 << 15, 1 << power)
+    x1, y1, _ = pcodec.g1_lem_from_bytes(fq, bytes(prep.sections[2][:n1 * sz1]), n1)
+    x2, y2, _ = pcodec.g2_lem_from_bytes(fq, bytes(prep.sections[3][:n2 * 2 * sz1]), n2)
+    put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) else ftorch.to_tensor(a, dev)
+    t = time.perf_counter()
+    scans = ceremony_scans(cv, v_shapes["msm_scan"],
+                           {"g1": (put(x1), put(y1)), "g2": (put(x2), put(y2))},
+                           gen, rate32, errs)
+    steps["kscan_vs_plain"] = (time.perf_counter() - t) * 1e3
+    check(not v_shapes["digit_mm"], "verify launched K-mm")
+    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "ceremony verify", errs)
+             for sh, k in sorted(v_shapes["digit_mm_norm"].items())]
+    total = time.perf_counter() - t_phase
+    log(f"  ceremony phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"  ceremony peak device memory {peak:.2f} GiB; phase total {total:.1f} s")
+    return {"power": power, "steps_ms": steps, "launches": launches, "predicted": pred,
+            "stages": stages, "peak_gib": peak, "total_s": total, "scans": scans,
+            "norms": norms}
+
+
 def sass_tensor_core_counts():
     """IGMMA (wgmma) and IMMA (mma.sync) instructions in the SASS of the two
     digit-matmul libraries; fails unless each holds some."""
@@ -1609,12 +1851,18 @@ def main():
     torch.cuda.empty_cache()
     log(f"[FFLONK at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
     ff = phase_fflonk(dev, gen, errs, rate32, ptau)
-    del ptau
     fl = ff["launches"]
+    torch.cuda.empty_cache()
+    log(f"[the powers-of-tau ceremony at power {SETUP_POWER}] "
+        f"({time.perf_counter() - t0:.1f} s so far)")
+    cer = phase_ceremony(dev, gen, errs, rate32, ptau)
+    del ptau
+    cl = cer["launches"]
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
     # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
-    # FFLONK prove's, `launches_fflonk_setup` its setups'.  `ms`, `plain_ms` and
+    # FFLONK prove's, `launches_fflonk_setup` its setups', `launches_ceremony`
+    # phase 13's (contribute, prepare_phase2, verify).  `ms`, `plain_ms` and
     # `bound_ms` belong to `shape`, the shape that path gave the kernel most
     # often.  `shapes` lists every shape the paths gave the kernel (K-field
     # has too many), each with its own launches, error, times and bound.
@@ -1629,11 +1877,12 @@ def main():
          dict(entries["field_ops"], shape=[16, 1 << 20]), []),
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
          "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
-         [pscan] + entries["msm_scan"] + ff["scans"]),
+         [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
-         "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big, [norm_big] + pnorms + ff["norms"]),
+         "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
+         [norm_big] + pnorms + ff["norms"] + cer["norms"]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -1647,16 +1896,19 @@ def main():
                  launches_fflonk=fl["prove"][kname],
                  launches_fflonk_setup={step: c[kname] for step, c in fl.items()
                                         if step != "prove"},
+                 launches_ceremony={step: c[kname] for step, c in cl.items()},
                  shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
         kernels.append(k)
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     kernels[0]["launches_by_op_fflonk"] = fl["prove"]["field_by_op"]
+    kernels[0]["launches_by_op_ceremony"] = {step: c["field_by_op"] for step, c in cl.items()}
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
     log(f"setup phase: {json.dumps(setup)}")
     log(f"fflonk phase: {json.dumps({k: v for k, v in ff.items() if k not in ('scans', 'norms')})}")
+    log(f"ceremony phase: {json.dumps({k: v for k, v in cer.items() if k not in ('scans', 'norms')})}")
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

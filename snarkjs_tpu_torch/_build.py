@@ -5,7 +5,9 @@ Each `csrc/<name>.cu` becomes one shared library with a plain C interface
 Hopper (`sm_90a`) into `snarkjs_tpu_torch/_build/`.  The file name carries a
 hash of the sources, so an edited kernel is rebuilt and a stale library is
 never loaded.  `build_all()` starts one nvcc per source at once; the wrappers
-call `library(name)`, which builds on demand.  A failed build raises.
+call `library(name)`, which builds on demand.  The host code in
+`csrc/<name>.cpp` (the BLAKE2b compression) is built the same way with g++
+by `host_library(name)`, on any machine.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ CSRC = os.path.join(_HERE, "csrc")
 OUT = os.path.join(_HERE, "_build")
 SOURCES = ("field_ops", "msm_scan", "digit_mm", "digit_mm_norm")
 ARCH = "arch=compute_90a,code=sm_90a"
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -44,6 +47,13 @@ def _digest(name: str) -> str:
 
 def lib_path(name: str) -> str:
     return os.path.join(OUT, f"lib{name}-{_digest(name)}.so")
+
+
+def host_lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(os.path.join(CSRC, f"{name}.cpp"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(OUT, f"lib{name}-host-{h.hexdigest()[:12]}.so")
 
 
 def log_path(name: str) -> str:
@@ -99,6 +109,33 @@ def library(name: str) -> ctypes.CDLL:
             build_all((name,))
             _libs[name] = ctypes.CDLL(lib_path(name))
     return _libs[name]
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library for csrc/<name>.cpp, built with g++ first if
+    missing.  A failed build raises; nothing falls back to Python."""
+    key = f"host:{name}"
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    with _lock:
+        if key not in _libs:
+            path = host_lib_path(name)
+            if not os.path.exists(path):
+                os.makedirs(OUT, exist_ok=True)
+                tmp = f"{path}.{os.getpid()}.tmp"
+                try:
+                    proc = subprocess.run(
+                        ["g++", *HOST_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cpp")],
+                        capture_output=True, text=True)
+                except OSError as e:
+                    raise RuntimeError(f"g++ failed for {name}: {e}") from e
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {name}:\n"
+                                       f"{(proc.stdout + proc.stderr)[-4000:]}")
+                os.replace(tmp, path)
+            _libs[key] = ctypes.CDLL(path)
+    return _libs[key]
 
 
 def check(err: int, what: str) -> None:

@@ -15,6 +15,8 @@ import torch
 
 from ..fields.params import LIMB_BITS
 
+DEVICE_BATCH = 1 << 21   # points per batched scalar multiplication on the card
+
 
 def jac_zero(f, batch_shape=()):
     return (f.zero(batch_shape), f.one(batch_shape), f.zero(batch_shape))
@@ -140,6 +142,16 @@ def scalar_bit_length(limbs) -> int:
         return 0
     top = int(nz[-1])
     return top * LIMB_BITS + int(limbs[top].max()).bit_length()
+
+
+def scalar_mul_affine(f, x, y, inf, limbs):
+    """[k_i] P_i for affine points (Montgomery limbs; `inf` marks infinity,
+    or None) and plain (NL, N) limb scalars, as affine (x, y, inf): one
+    double-and-add over as many bits as the batch's largest scalar has, one
+    batched inversion."""
+    acc = batch_scalar_mul_limbs(f, from_affine(f, x, y, inf), limbs,
+                                 scalar_bit_length(limbs))
+    return to_affine_batch(f, acc, f.batch_inv)
 
 
 def scalar_bits_from_limbs(scalars, nbits: int):

@@ -9,7 +9,9 @@ where fjnp keeps Montgomery form.
 Every op dispatches on the device of its operands, as fjnp's `_*_impl`
 dispatch to Pallas: a CUDA tensor goes to kernel K-field (`fcuda`), a CPU
 tensor to the plain version below, which computes limbs in int64 (a 16x16
-product and a column sum of 2*NL of them fit easily).  `plain_versions()`
+product and a column sum of 2*NL of them fit easily; products with the
+constants p and -p^-1 as exact float64 matmuls) and resolves carries a round
+at a time across all limbs (`_normalize`).  `plain_versions()`
 runs the plain versions on any device; it exists so a run on the card can
 hold the kernels against them, and nothing on the prover's path enters it.
 """
@@ -38,6 +40,13 @@ class FieldCtx:
         self.pinv_np = np.array(fp.limbs(fp.pinv_neg), dtype=np.int64)
         self.r2_np = np.array(fp.limbs(fp.R2), dtype=np.int64)
         self.one_np = np.array(fp.limbs(fp.one_mont), dtype=np.int64)
+        # Toeplitz matrices of -p^-1 (low NL columns) and p (2 NL columns):
+        # a product of limbs with either is one matmul
+        k, i = np.arange(2 * self.nl)[:, None], np.arange(self.nl)[None, :]
+        toe = lambda v, rows: np.where((k[:rows] >= i) & (k[:rows] - i < self.nl),
+                                       v[np.clip(k[:rows] - i, 0, self.nl - 1)], 0)
+        self.pinv_toe = toe(self.pinv_np, self.nl).astype(np.float64)
+        self.p_toe = toe(self.p_np, 2 * self.nl).astype(np.float64)
 
     def _c(self, arr_np, like, dtype=DTYPE):
         return torch.as_tensor(arr_np, dtype=dtype, device=like.device).reshape(
@@ -45,9 +54,6 @@ class FieldCtx:
 
     def p(self, x, dtype=DTYPE):
         return self._c(self.p_np, x, dtype)
-
-    def pinv(self, x):
-        return self._c(self.pinv_np, x, torch.int64)
 
     def r2(self, x):
         return self._c(self.r2_np, x)
@@ -121,27 +127,34 @@ def _conv(a, b, out_cols):
     return cols[:out_cols]
 
 
-def _sub_limbs(a, b):
-    """a - b with a borrow chain; (limbs, borrow-out)."""
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    out = torch.empty(shape, dtype=torch.int64, device=a.device)
-    borrow = torch.zeros(shape[1:], dtype=torch.int64, device=a.device)
-    for k in range(shape[0]):
-        d = a[k] - b[k] - borrow
-        borrow = (d < 0).to(torch.int64)
-        out[k] = d + (borrow << LIMB_BITS)
-    return out, borrow
+def _conv_const(toe, x):
+    """Column sums of the limb product of x with a constant whose Toeplitz
+    matrix is `toe`: one float64 matmul.  Each limb product is below 2^32 and
+    each column a sum of at most 24 of them, so every sum is exact."""
+    t = torch.as_tensor(toe, device=x.device)
+    out = t @ x.reshape(x.shape[0], -1).to(torch.float64)
+    return out.to(torch.int64).reshape((t.shape[0],) + tuple(x.shape[1:]))
 
 
-def _add_limbs(a, b):
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    return _carry_prop(a.expand(shape) + b.expand(shape))
+def _normalize(cols):
+    """Exact base-2^16 form of int64 limb columns of any sign: (limbs in
+    [0, 2^16), the carry out of the top limb, negative for a borrow).  Every
+    column hands its carry one limb up a round, all columns at once; the
+    rounds end when no carry is left (a few, but for a run of 0xFFFF limbs)."""
+    top = torch.zeros_like(cols[0])
+    while True:
+        hi = cols >> LIMB_BITS
+        if not bool(hi.any()):
+            return cols, top
+        cols = cols & LIMB_MASK
+        cols[1:] += hi[:-1]
+        top = top + hi[-1]
 
 
 def _cond_sub_p(ctx, limbs, carry):
     """(carry*R + limbs) < 2p  ->  [0, p)."""
-    diff, borrow = _sub_limbs(limbs, ctx.p(limbs, torch.int64))
-    use_diff = (carry + 1 - borrow) >= 1
+    diff, top = _normalize(limbs - ctx.p(limbs, torch.int64))
+    use_diff = (carry + top) >= 0
     return torch.where(use_diff[None], diff, limbs)
 
 
@@ -152,19 +165,19 @@ def _i64(t):
 
 
 def _add_plain(ctx, a, b):
-    s, carry = _add_limbs(_i64(a), _i64(b))
+    s, carry = _normalize(_i64(a) + _i64(b))
     return _cond_sub_p(ctx, s, carry).to(DTYPE)
 
 
 def _sub_plain(ctx, a, b):
-    d, borrow = _sub_limbs(_i64(a), _i64(b))
-    fixed, _ = _add_limbs(d, ctx.p(d, torch.int64))
-    return torch.where((borrow == 1)[None], fixed, d).to(DTYPE)
+    d, top = _normalize(_i64(a) - _i64(b))
+    fixed, _ = _normalize(d + ctx.p(d, torch.int64))
+    return torch.where((top < 0)[None], fixed, d).to(DTYPE)
 
 
 def _neg_plain(ctx, a):
     a = _i64(a)
-    d, _ = _sub_limbs(ctx.p(a, torch.int64).expand(a.shape), a)
+    d, _ = _normalize(ctx.p(a, torch.int64) - a)
     return torch.where(is_zero(ctx, a)[None], torch.zeros_like(a), d).to(DTYPE)
 
 
@@ -172,12 +185,15 @@ def _mont_mul_plain(ctx, a, b):
     """a*b*R^-1 mod p for a < R, b < p (fjnp._mont_mul_impl's XLA path)."""
     n = ctx.nl
     a, b = _i64(a), _i64(b)
-    t, t_top = _carry_prop(_conv(a, b, 2 * n))
-    m, _ = _carry_prop(_conv(t[:n], ctx.pinv(t), n))
-    u_cols = _conv(m, ctx.p(t, torch.int64), 2 * n)
-    u_cols = u_cols + t
-    u, carry = _carry_prop(u_cols)
-    return _cond_sub_p(ctx, u[n:], carry + t_top).to(DTYPE)
+    t, t_top = _normalize(_conv(a, b, 2 * n))
+    m, _ = _normalize(_conv_const(ctx.pinv_toe, t[:n]))
+    mp, _ = _normalize(_conv_const(ctx.p_toe, m))
+    # m p = -t mod R, so the low halves of t and m p sum to 0 or to R: the
+    # carry into the high half is 1 exactly when t's low half is nonzero
+    cols = mp[n:] + t[n:]
+    cols[0] += (t[:n] != 0).any(dim=0)
+    u, carry = _normalize(cols)
+    return _cond_sub_p(ctx, u, carry + t_top).to(DTYPE)
 
 
 # ------------------------------------------------------------ public ops

@@ -16,18 +16,24 @@ comment, src/powersoftau_utils.js):
 Point wire encodings (ffjavascript conventions):
   * LEM  — little-endian Montgomery x||y; infinity = all-zero words.
   * U    — big-endian standard x||y (challenge files / transcript hashing).
-  * C    — big-endian standard x with flag bits in byte 0 (response files).
+  * C    — big-endian standard x with flag bits in byte 0 (response files):
+           0x40 marks infinity; 0x80 marks y > p/2 ("greater" half, the
+           ffjavascript sign convention).  wasmcurves g1m_LEMtoC semantics.
 
-The compressed (C) codec, a contribution record's response hash (it resumes
-a saved BLAKE2b midstate) and writing a file section by section come with
-the ceremony (ROADMAP A4).
+The codecs here work on host ints, one point at a time (ceremony records hold
+a few points); whole sections go through the batched codecs of
+`ceremony/ptau_ops.py`.
 """
 
 from __future__ import annotations
 
+import hashlib
+import mmap
+import struct
 from dataclasses import dataclass, field
 
 from ..curves import host_curve as hc
+from ..utils.blake2b import Blake2b
 from . import points
 from .binfile import BinFile, BinFileWriter, SectionWriter
 
@@ -53,6 +59,30 @@ def g1_from_lem(fq, b: bytes):
 
 def g2_from_lem(fq, b: bytes):
     return points.g2_lem_to_ints(fq, b, 1)[0]
+
+
+def g1_compressed_be(fq, p) -> bytes:
+    if p is None:
+        return bytes([0x40]) + b"\0" * (fq.n8 - 1)
+    out = bytearray(int(p[0]).to_bytes(fq.n8, "big"))
+    if int(p[1]) > fq.p >> 1:
+        out[0] |= 0x80
+    return bytes(out)
+
+
+def g2_compressed_be(fq, p) -> bytes:
+    """BE F2 reprs are component-swapped (c1 || c0) — Bellman G2Compressed /
+    wasmcurves g2m_LEMtoC convention."""
+    if p is None:
+        return bytes([0x40]) + b"\0" * (2 * fq.n8 - 1)
+    out = bytearray(int(p[0][1]).to_bytes(fq.n8, "big")
+                    + int(p[0][0]).to_bytes(fq.n8, "big"))
+    # sign from y lexicographically: (y1, y0) "greater" per F2 gt convention
+    y0, y1 = int(p[1][0]), int(p[1][1])
+    half = fq.p >> 1
+    if (y1 > half) or (y1 == 0 and y0 > half):
+        out[0] |= 0x80
+    return bytes(out)
 
 
 def g1_u_to_ints(fq, b: bytes):
@@ -124,6 +154,13 @@ class Contribution:
     num_iterations_exp: int = 0
     beacon_hash: bytes = b""
     id: int = 0
+
+    def response_hash(self, cv) -> bytes:
+        """Resume the saved partial hash and absorb the uncompressed pubkey
+        (src/powersoftau_utils.js:180-186)."""
+        h = Blake2b.from_partial(self.partial_hash)
+        h.update(pubkey_to_bytes(cv, self.key, montgomery=False))
+        return h.digest()
 
 
 def contribution_to_bytes(cv, c: Contribution) -> bytes:
@@ -199,22 +236,61 @@ class PtauFile:
     sections: dict = field(default_factory=dict)   # sid -> raw LEM bytes
     contributions: list = field(default_factory=list)
 
-    def tobytes(self) -> bytes:
-        bw = BinFileWriter("ptau", 1)
+    @property
+    def n_tau_g1(self) -> int:
+        return (1 << self.power) * 2 - 1
+
+    def counts(self):
+        n = 1 << self.power
+        return {2: 2 * n - 1, 3: n, 4: n, 5: n, 6: 1}
+
+    def _header(self) -> bytes:
         h = SectionWriter()
         h.u32(self.curve.fq.n8)
         h.big(self.curve.fq.p, self.curve.fq.n8)
         h.u32(self.power)
         h.u32(self.ceremony_power)
-        bw.add_section(1, h.tobytes())
-        for sid in sorted(self.sections):
-            bw.add_section(sid, self.sections[sid])
+        return h.tobytes()
+
+    def _contributions(self) -> bytes:
         cw = SectionWriter()
         cw.u32(len(self.contributions))
         for c in self.contributions:
             cw.raw(contribution_to_bytes(self.curve, c))
-        bw.add_section(7, cw.tobytes())
+        return cw.tobytes()
+
+    def tobytes(self) -> bytes:
+        bw = BinFileWriter("ptau", 1)
+        bw.add_section(1, self._header())
+        for sid in sorted(self.sections):
+            bw.add_section(sid, self.sections[sid])
+        bw.add_section(7, self._contributions())
         return bw.tobytes()
+
+    def save(self, path: str):
+        """Stream the file to disk in 16 MiB chunks (no whole-file buffer;
+        sections may be mmap- or spool-backed views).  The bytes are those of
+        `tobytes`."""
+        chunk = 16 * 1024 * 1024
+        payloads = [(1, self._header())]
+        payloads += [(sid, self.sections[sid]) for sid in sorted(self.sections)]
+        payloads.append((7, self._contributions()))
+        with open(path, "wb") as f:
+            f.write(b"ptau" + struct.pack("<II", 1, len(payloads)))
+            for sid, payload in payloads:
+                mv = memoryview(payload)
+                mm = mv.obj if isinstance(mv.obj, mmap.mmap) else None
+                f.write(struct.pack("<IQ", sid, len(mv)))
+                for off in range(0, len(mv), chunk):
+                    f.write(mv[off:off + chunk])
+                    if mm is not None:
+                        # drop spool-backed pages as they stream out
+                        mm.madvise(mmap.MADV_DONTNEED, off, min(chunk, len(mv) - off))
+
+    def last_challenge(self) -> bytes:
+        if self.contributions:
+            return self.contributions[-1].next_challenge
+        return first_challenge_hash(self.curve, self.power)
 
 
 def read_ptau(path_or_bytes) -> PtauFile:
@@ -242,3 +318,29 @@ def read_ptau(path_or_bytes) -> PtauFile:
         c.id = i + 1
         pt.contributions.append(c)
     return pt
+
+
+def first_challenge_hash(cv, power: int) -> bytes:
+    """blake2b over the empty hash and the generator copies of a blank
+    accumulator's sections (src/powersoftau_utils.js:312-358), absorbed in
+    bounded runs of copies."""
+    h = hashlib.blake2b(digest_size=64)
+    h.update(hashlib.blake2b(digest_size=64).digest())
+    vg1 = points.g1_uncompressed_be(cv.fq, cv.g1)
+    vg2 = points.g2_uncompressed_be(cv.fq, cv.g2)
+    n = 1 << power
+    for v, count in ((vg1, 2 * n - 1), (vg2, n), (vg1, n), (vg1, n), (vg2, 1)):
+        run = v * min(count, 1 << 14)
+        for _ in range(count // (1 << 14)):
+            h.update(run)
+        h.update(v * (count % (1 << 14)))
+    return h.digest()
+
+
+def format_hash(b: bytes, caption: str = "") -> str:
+    lines = []
+    for i in range(0, len(b), 32):
+        row = b[i:i + 32]
+        lines.append("\t\t" + " ".join(
+            row[j:j + 4].hex() for j in range(0, len(row), 4)))
+    return (caption + "\n" if caption else "") + "\n".join(lines)

@@ -25,6 +25,8 @@ Facts of the format mirrored from the reference:
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -39,10 +41,8 @@ from ..formats import points as pcodec
 from ..formats import zkey as zkey_fmt
 from ..formats.binfile import BinFileWriter, SectionWriter
 from ..formats.r1cs import R1cs
-from ..utils.blake2b import Blake2b
 
 HOST_ROUTE_MAX = 512     # up to this many scalars, host bigints
-DEVICE_BATCH = 1 << 21   # points per batched scalar multiplication on the card
 
 
 def domain_size_for(r1cs: R1cs) -> int:
@@ -87,7 +87,7 @@ def _points_from_scalars(cv, scalars, g2=False, device=None):
 
     Up to HOST_ROUTE_MAX scalars on host bigints, as the JAX package does;
     more go to a batched double-and-add on `device` (None: the card), in
-    batches of DEVICE_BATCH points, as many steps as the batch's largest
+    batches of jac.DEVICE_BATCH points, as many steps as the batch's largest
     scalar has bits, each batch turned affine with one batched inversion."""
     fr, fq = cv.fr, cv.fq
     n = len(scalars)
@@ -115,18 +115,16 @@ def _points_from_scalars(cv, scalars, g2=False, device=None):
     gen = cv.g2 if g2 else cv.g1
     sl = ftorch.np_from_ints(fr, scalars)
     parts = []
-    for lo in range(0, n, DEVICE_BATCH):
-        m = min(n, lo + DEVICE_BATCH) - lo
+    for lo in range(0, n, jac.DEVICE_BATCH):
+        m = min(n, lo + jac.DEVICE_BATCH) - lo
         coord = lambda v: ftorch.to_tensor(ftorch.np_from_int(fq, fq.to_mont(v)),
                                            device)[:, None].expand(fq.nl, m).contiguous()
         if g2:
-            P = jac.from_affine(f, tuple(coord(v) for v in gen[0]),
-                                tuple(coord(v) for v in gen[1]))
+            x, y = tuple(coord(v) for v in gen[0]), tuple(coord(v) for v in gen[1])
         else:
-            P = jac.from_affine(f, coord(gen[0]), coord(gen[1]))
+            x, y = coord(gen[0]), coord(gen[1])
         k = ftorch.to_tensor(sl[:, lo:lo + m], device)
-        acc = jac.batch_scalar_mul_limbs(f, P, k, jac.scalar_bit_length(k))
-        parts.append(_to_numpy(jac.to_affine_batch(f, acc, f.batch_inv)))
+        parts.append(_to_numpy(jac.scalar_mul_affine(f, x, y, None, k)))
     if len(parts) == 1:
         return parts[0]
     return tuple(_cat_np([p[i] for p in parts]) for i in range(3))
@@ -398,7 +396,7 @@ def setup_from_ptau(r1cs: R1cs, ptau, logger=None, device=None) -> bytes:
     beta2 = bytes(ptau.sections[6][:s_g2])
     g1b = pcodec.g1_lem_from_ints(fq, [cv.g1])
     g2b = pcodec.g2_lem_from_ints(fq, [cv.g2])
-    cs = Blake2b(64)
+    cs = hashlib.blake2b(digest_size=64)
     for b, g2_ in ((alpha1, False), (beta1, False), (beta2, True),
                    (g2b, True), (g1b, False), (g2b, True)):
         cs.update(lem_to_u(cv, b, 1, g2_, device))

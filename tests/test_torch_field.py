@@ -1,7 +1,8 @@
 """snarkjs_tpu_torch field ops (plain versions on the CPU) against fjnp.
 
 Exact: limbs equal.  Inputs from a numpy seed, with the edge values 0, 1,
-p-1, and to_mont of limbs in [p, R) (the wide sums of the Groth16 buildABC).
+p-1, runs of 0xFFFF limbs, and to_mont of limbs in [p, R) (the wide sums of
+the Groth16 buildABC).
 """
 
 import jax.numpy as jnp
@@ -16,9 +17,13 @@ FIELDS = ["bn254_fr", "bn254_fq", "bls12_381_fr", "bls12_381_fq"]
 
 
 def _values(fp, seed, n=61):
+    """n + 3 values: edge values, runs of 0xFFFF limbs (long carry and borrow
+    chains in the plain versions), then random ones."""
     rng = np.random.default_rng(seed)
-    vals = [int.from_bytes(rng.bytes(fp.n8), "little") % fp.p for _ in range(n)]
-    return [0, 1, fp.p - 1] + vals
+    runs = [fp.p - (1 << 16)] + [((1 << (16 * k)) - 1) % fp.p
+                                 for k in (1, fp.nl // 2, fp.nl - 1, fp.nl)]
+    vals = [int.from_bytes(rng.bytes(fp.n8), "little") % fp.p for _ in range(n - len(runs))]
+    return [0, 1, fp.p - 1] + runs + vals
 
 
 def _pair(name):

@@ -39,6 +39,8 @@ PORT_MODULES = [
     "snarkjs_tpu_torch.curves.msm", "snarkjs_tpu_torch.formats.ptau",
     "snarkjs_tpu_torch.utils.blake2b", "snarkjs_tpu_torch.ceremony.ptau_ops",
     "snarkjs_tpu_torch.protocols.fflonk", "snarkjs_tpu_torch.protocols.fflonk_setup",
+    "snarkjs_tpu_torch.ceremony.keypair", "snarkjs_tpu_torch.utils.chacha",
+    "snarkjs_tpu_torch.utils.spool",
 ]
 
 
@@ -169,6 +171,61 @@ def test_setup_parts_raise_without_cuda(monkeypatch):
                  lambda: ptau_ops.lem_to_u(hc.BN254, bytes(64), 1, False)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_ceremony_entry_points_raise_without_cuda(monkeypatch):
+    """The ceremony's entry points default to the card and raise without
+    one, whatever the number of points; the host-only ones (new_accumulator, truncate, export_json) take no
+    device."""
+    from snarkjs_tpu_torch.ceremony import ptau_ops
+    from snarkjs_tpu_torch.curves import host_curve as hc
+    from snarkjs_tpu_torch.utils.chacha import ChaCha
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, pt = _setup_inputs()
+    acc = ptau_ops.new_accumulator(hc.BN254, 2)
+    cv = hc.BN254
+    calls = [
+        lambda: ptau_ops.contribute(acc, rng=ChaCha([1] * 8)),
+        lambda: ptau_ops.beacon(acc, b"\x01" * 32, 3),
+        lambda: ptau_ops.export_challenge(acc),
+        lambda: ptau_ops.challenge_contribute(cv, b"\0" * 64, rng=ChaCha([1] * 8)),
+        lambda: ptau_ops.import_response(acc, b""),
+        lambda: ptau_ops.verify(pt),
+        lambda: ptau_ops.prepare_phase2(pt),
+        lambda: ptau_ops.convert(pt),
+        lambda: ptau_ops.group_lagrange_lem(cv, bytes(pt.sections[2]), 4, False),
+        lambda: ptau_ops.apply_key_g1(cv, bytes(pt.sections[2]), 65, 1, 2),
+        # sizes that a CPU device takes to host bigints raise all the same
+        lambda: ptau_ops.apply_key_g1(cv, bytes(pt.sections[2]), 64, 1, 2),
+        lambda: ptau_ops.apply_key_g2(cv, bytes(pt.sections[3]), 1, 1, 2),
+        lambda: ptau_ops._msm_lem(cv, bytes(pt.sections[2]), [1, 2], False),
+        lambda: ptau_ops.lem_to_c(cv, bytes(64), 1, False),
+        lambda: ptau_ops.c_to_lem(cv, bytes(32), 1, False),
+        lambda: ptau_ops.u_to_lem(cv, bytes(64), 1, False),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ptau_ops.export_json(ptau_ops.truncate(pt, 1))["power"] == 1
+
+
+def test_failed_blake2b_build_raises(monkeypatch, tmp_path):
+    """A failed g++ build raises; there is no pure-Python BLAKE2b to fall
+    back to."""
+    from snarkjs_tpu_torch import _build
+    from snarkjs_tpu_torch.utils import blake2b as tblake
+
+    monkeypatch.setattr(_build, "OUT", str(tmp_path))
+    monkeypatch.setattr(_build, "HOST_FLAGS", _build.HOST_FLAGS + ("--no-such-flag",))
+    monkeypatch.delitem(_build._libs, "host:blake2b", raising=False)
+    tblake._lib.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed for blake2b"):
+            tblake.Blake2b(64)
+        assert not list(tmp_path.glob("*.so"))
+    finally:
+        tblake._lib.cache_clear()
 
 
 def test_kernel_wrappers_do_not_fall_back_on_cuda_tensors(monkeypatch):
@@ -369,3 +426,44 @@ def test_fflonk_prove_on_card_equals_stored_proof(card):
                              os.path.join(fx, "tiny_fflonk_adds_bn128.wtns"),
                              b=want["b"], device=card)
     assert json.dumps(list(got)) == json.dumps([want["proof"], want["publicSignals"]])
+
+
+@pytest.mark.cuda
+def test_ceremony_on_card_equals_stored_jax(card):
+    """preparePhase2 of the stored bn128 power-4 file on the card (every
+    block through the batched group iNTT, K-field) gives the JAX package's
+    file byte for byte, and verify accepts it there (K-scan, K-mm-norm)."""
+    from snarkjs_tpu_torch.ceremony import ptau_ops
+    from snarkjs_tpu_torch.fields import fcuda
+    from snarkjs_tpu_torch.formats import ptau as tptau
+    from tests import _torch_ceremony as tc
+
+    pt = tptau.read_ptau(tc.stored_beacon_file())
+    before = sum(fcuda.LAUNCHES.values())
+    prep = ptau_ops.prepare_phase2(pt, device=card)
+    assert sum(fcuda.LAUNCHES.values()) > before
+    assert tc.sha(prep.tobytes()) == tc.stored()["bn128_p4"]["sha256"]["prepared"]
+    assert ptau_ops.verify(prep, rng=np.random.default_rng(tc.VERIFY_SEED), device=card)
+
+
+@pytest.mark.cuda
+def test_ceremony_chain_on_card_equals_stored_jax(card):
+    """The whole bn128 power-4 chain on the card, where every apply-key and
+    MSM has 64 points or fewer and still goes through the kernels (K-field,
+    K-scan): every file, hash and verify result equals the JAX run."""
+    from snarkjs_tpu_torch.ceremony import ptau_ops
+    from snarkjs_tpu_torch.curves import host_curve as thc
+    from snarkjs_tpu_torch.curves import msm_gpu
+    from snarkjs_tpu_torch.fields import fcuda
+    from snarkjs_tpu_torch.formats import ptau as tptau
+    from snarkjs_tpu_torch.utils.chacha import ChaCha
+    from tests import _torch_ceremony as tc
+
+    curve, power = tc.CASES["bn128_p4"]
+    fcuda.reset_counts()
+    scans = msm_gpu.LAUNCHES[0]
+    got, _ = tc.run_chain(ptau_ops, tptau, ChaCha, getattr(thc, curve), power,
+                          {"device": card})
+    assert sum(fcuda.LAUNCHES.values()) > 0 and msm_gpu.LAUNCHES[0] > scans
+    want = tc.stored()["bn128_p4"]
+    assert got == {k: want[k] for k in got}
