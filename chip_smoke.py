@@ -93,7 +93,21 @@ Phases (any failure exits non-zero before the last line):
      the counts predicted from the code; one G1 and one G2 stage of the
      batched group iNTT timed and profiled alone; K-field, K-scan and
      K-mm-norm against their plain versions at the shapes the phase gave them;
- 14. K-scan's registers, local memory and spills, the kernels line, then the
+ 14. Groth16 phase 2 at domain 2^18 on phase 10's key (the chain with
+     circom's coefficients) and .ptau: zkey contribute and beacon, five
+     points of sections 8 and 9 and the header's delta against host bigints,
+     verify_from_init (accepts the result; rejects two swapped L points and a
+     flipped transcript byte), verify_from_r1cs, export_mpc_params ->
+     bellman_contribute -> import_mpc_params with the imported key verified
+     and a flipped csHash byte refused, Groth16 proofs with the final and the
+     imported key passing the pairing check (tampered publics rejected), and
+     the Solidity verifier of the final key holding its constants.  Launch
+     counts set to 0 just before contribute, verify_from_init, the export
+     and the import and read just after, beside the counts predicted from
+     the code; one stage of the H points' group iNTT timed and profiled
+     alone; K-field, K-scan and K-mm-norm against their plain versions at
+     the shapes the phase gave them;
+ 15. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
@@ -118,10 +132,11 @@ import numpy as np
 import torch
 
 from snarkjs_tpu_torch import _build
-from snarkjs_tpu_torch.ceremony import keypair, ptau_ops
+from snarkjs_tpu_torch.ceremony import bellman, keypair, ptau_ops, zkey_mpc
 from snarkjs_tpu_torch.curves import host_curve as hc
 from snarkjs_tpu_torch.curves import msm as msm_mod
 from snarkjs_tpu_torch.curves import msm_gpu
+from snarkjs_tpu_torch.export import solidity
 from snarkjs_tpu_torch.fields import fcuda, ftorch
 from snarkjs_tpu_torch.formats import points as pcodec
 from snarkjs_tpu_torch.formats import ptau as ptau_fmt
@@ -1209,8 +1224,8 @@ def ptau_scalars(cv, power, tau, alpha, beta):
 def build_ptau(cv, power, scalars, dev):
     """The .ptau whose points are [k]G for the scalars of `ptau_scalars`, all
     G1 points from one call of the port's `_points_from_scalars` and all G2
-    points from another (the batched double-and-add on the card above 512
-    scalars, in batches of its DEVICE_BATCH).  No contribution record."""
+    points from another (the batched double-and-add on the card, in batches
+    of its DEVICE_BATCH).  No contribution record."""
     fq = cv.fq
     pt = ptau_fmt.PtauFile(cv, power, power)
     for g2 in (False, True):
@@ -1240,7 +1255,9 @@ def phase_setup(dev, gen, errs, rate32):
     with every coefficient 1 timed beside it), a proof with each key
     passing the pairing check and a tampered public rejected.  Launch counts
     set to 0 just before each setup and read just after.  The .ptau is handed
-    back (key "ptau") for the FFLONK phase."""
+    back (key "ptau") for the FFLONK, ceremony and phase-2 phases, the
+    Groth16 key (key "zkey") and the chain with its witness (key "chain")
+    for phase 2."""
     cv = hc.BN254
     fr = cv.fr
     sec = setup_secrets()
@@ -1330,7 +1347,7 @@ def phase_setup(dev, gen, errs, rate32):
     steps["groth16_verify"] = (time.perf_counter() - t) * 1e3
     log(f"  Groth16 prove with it {steps['groth16_prove']:.0f} ms (first, uploads the key); "
         "pairing check passes, tampered public rejected")
-    del zk, zbytes
+    del zk
     torch.cuda.empty_cache()
 
     with recorded_shapes() as shapes:
@@ -1378,7 +1395,7 @@ def phase_setup(dev, gen, errs, rate32):
     log(f"  setup phase total {total:.1f} s")
     return {"steps_ms": steps, "launches": launches, "busy_ms": busy,
             "ptau_g1_section2_busy_ms": batch_busy, "total_s": total, "scan": scan,
-            "ptau": back}
+            "ptau": back, "zkey": zbytes, "chain": (r1cs, wit)}
 
 
 # ------------------------------------------------------------- FFLONK phase
@@ -1591,8 +1608,8 @@ def field_cases(dev, gen, errs, sizes, what):
     log(f"  K-field bn254_fq: add sub mont_mul == plain at {list(sizes)} ({what})")
 
 
-def ceremony_scans(cv, seen, pts, gen, rate32, errs):
-    """K-scan against its plain version at every shape `verify` gave it:
+def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
+    """K-scan against its plain version at every shape a verify gave it:
     the input is rebuilt from the .ptau's points (tiled) and random scalars
     at the point count C * RL, which gives the recorded shape."""
     out = []
@@ -1610,7 +1627,7 @@ def ceremony_scans(cv, seen, pts, gen, rate32, errs):
             scal = torch.stack([scal & 0xFF, (scal >> 8) & 0xFF], dim=1).reshape(-1, n)
         out.append(scan_case(cv, group, (tile(x), tile(y), torch.zeros(n, dtype=torch.bool,
                                                                       device=dev)),
-                             scal, seen, "ceremony verify", rate32, errs, cw=cw, lanes=RL))
+                             scal, seen, path, rate32, errs, cw=cw, lanes=RL))
     return out
 
 
@@ -1620,6 +1637,12 @@ def stage_busy(cv, pt, g2, dev):
     the profiler, the device's busy share."""
     sids = (3,) if g2 else (2, 4, 5)
     blocks = [b for old in sids for b in ptau_ops._section_blocks(cv, pt, old, g2) if b[1]]
+    return blocks_stage_busy(cv, g2, blocks, dev, "preparePhase2")
+
+
+def blocks_stage_busy(cv, g2, blocks, dev, what):
+    """Stage STAGE_PROFILED of the batched group iNTT of `blocks` ([(lem,
+    k)]), alone: wall time, K-field launches and the device's busy share."""
     P, offs = ptau_ops._intt_lanes(cv, g2, blocks, dev)
     stage = lambda: ptau_ops._intt_stage(cv, g2, P, offs, STAGE_PROFILED, [], dev)
     reset_counts()
@@ -1629,7 +1652,7 @@ def stage_busy(cv, pt, g2, dev):
     del P
     torch.cuda.empty_cache()
     group = "G2" if g2 else "G1"
-    log(f"  preparePhase2 {group} stage {STAGE_PROFILED} alone: {ms:.0f} ms, {lanes} lanes "
+    log(f"  {what} {group} stage {STAGE_PROFILED} alone: {ms:.0f} ms, {lanes} lanes "
         f"multiplied, {c['field_ops']} K-field launches"
         + ("" if busy is None else f", device busy {busy:.0f} ms ({100 * busy / ms:.1f} %)"))
     return {"ms": ms, "lanes": lanes, "field_ops": c["field_ops"], "busy_ms": busy}
@@ -1775,6 +1798,257 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
             "norms": norms}
 
 
+# ------------------------------------------------------------ phase 2
+
+PHASE2_SEED = [0x9A5E_0001, 0x9A5E_0002, 0x9A5E_0003, 0x9A5E_0004, 9, 10, 11, 12]
+PHASE2_BELLMAN_SEED = [0xBE11_0001, 0xBE11_0002, 0xBE11_0003, 0xBE11_0004, 1, 2, 3, 4]
+PHASE2_BEACON = bytes.fromhex("a5" * 32)
+PHASE2_BEACON_EXP = 10
+PHASE2_VERIFY_SEED = 2718
+
+
+class Lines:
+    """A logger that keeps its error and info lines."""
+
+    def __init__(self):
+        self.lines = []
+
+    def error(self, m):
+        self.lines.append(m)
+
+    info = warn = error
+
+    def debug(self, m):
+        pass
+
+
+@contextlib.contextmanager
+def field_shapes():
+    """Count K-field launches by (field, elements) in a block; the calls go
+    on to the wrapper unchanged."""
+    seen = collections.Counter()
+    launch = fcuda.launch
+
+    def rec(op, fp, a, b=None):
+        seen[(fp.name, a.numel() // fp.nl)] += 1
+        return launch(op, fp, a, b)
+
+    fcuda.launch = rec
+    try:
+        yield seen
+    finally:
+        fcuda.launch = launch
+
+
+def phase2_predicted(domain):
+    """K-field launches in phase 2's batched double-and-adds, counted from the
+    code: 71 a G1 step (as `ceremony_predicted` counts), 254 steps a batch
+    of full-size scalars.  A contribution: one batch (sections 8 and 9
+    together, n_l + domain lanes).  An export or an import: stages 1 .. k-1
+    of the group iNTT of the 2^k = domain H points, one batch each, and the
+    coset key's batch.  A Bellman round: one batch (H and L).  A verify:
+    four K-scans (two MSMs for L, two for H)."""
+    g1 = 254 * 71
+    k = domain.bit_length() - 1
+    return {"contribute": g1, "export_mpc_params": k * g1, "import_mpc_params": k * g1,
+            "bellman_contribute": g1, "verify_from_init_msm_scan": 4}
+
+
+def with_section(zkey, sid, payload):
+    bf = BinFile(zkey, "zkey")
+    sec = bf.section(sid)
+    check(len(payload) == sec.size, "a replaced section must keep its size")
+    return zkey[:sec.pos] + payload + zkey[sec.pos + sec.size:]
+
+
+def phase_zkey_mpc(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit):
+    """Groth16 phase 2 at domain 2^18 on phase 10's key (the
+    200,000-constraint chain with circom's coefficients) and .ptau:
+    contribute (ChaCha(PHASE2_SEED)), beacon; five points of sections 8 and 9
+    against old point x (d1 d2)^-1 on host bigints and the header's delta
+    against (d1 d2) G; verify_from_init (accepts; rejects two swapped L
+    points and a flipped transcript byte), verify_from_r1cs; export ->
+    bellman_contribute -> import, verify of the imported key, a flipped
+    csHash byte refused; a Groth16 proof with the final key and with the
+    imported one, a tampered public rejected; the Solidity verifier of the
+    final key.  Launch counts set to 0 just before contribute,
+    verify_from_init, export_mpc_params and import_mpc_params and read just
+    after, beside the counts predicted from the code; one stage of the H
+    points' group iNTT timed and profiled alone; K-field, K-scan and
+    K-mm-norm against their plain versions at the shapes the phase gave
+    them."""
+    cv = hc.BN254
+    fr, fq = cv.fr, cv.fq
+    sz = 2 * fq.n8
+    t_phase = time.perf_counter()
+    steps, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    _, _, meta, vk0 = zkey_mpc._parse(zbytes)
+    domain = meta["domain"]
+    n_l = meta["n_vars"] - meta["n_public"] - 1
+    pred = phase2_predicted(domain)
+    verify = lambda z, lg=None: zkey_mpc.verify_from_init(
+        zbytes, ptau, z, logger=lg, rng=np.random.default_rng(PHASE2_VERIFY_SEED), device=dev)
+
+    with field_shapes() as fshapes:
+        reset_counts()
+        steps["contribute"], (z1, h1) = wall_ms(lambda: zkey_mpc.contribute(
+            zbytes, name="chip_smoke", rng=ChaCha(PHASE2_SEED), device=dev))
+        launches["contribute"] = counts()
+        steps["beacon"], (z2, h2) = wall_ms(lambda: zkey_mpc.beacon(
+            z1, PHASE2_BEACON, PHASE2_BEACON_EXP, name="beacon", device=dev))
+        log(f"  contribute (n_l {n_l} + domain {domain} points): {steps['contribute']:.0f} ms, "
+            f"K-field launches {launches['contribute']['field_ops']} (predicted "
+            f"{pred['contribute']} in the double-and-add, plus the powers, the affine form "
+            f"and the codecs); beacon (2^{PHASE2_BEACON_EXP} SHA-256): {steps['beacon']:.0f} ms; "
+            f"hashes {h1[:8].hex()}..., {h2[:8].hex()}...")
+
+        # the new points on host bigints: old x (d1 d2)^-1, delta = (d1 d2) G
+        d = (keypair.field_from_rng(fr, ChaCha(PHASE2_SEED)) * keypair.field_from_rng(
+            fr, ptau_ops.rng_from_beacon(PHASE2_BEACON, PHASE2_BEACON_EXP))) % fr.p
+        d_inv = pow(d, -1, fr.p)
+        before, after = zkey_sections(zbytes), zkey_sections(z2)
+        for sid, n in ((8, n_l), (9, domain)):
+            for i in (0, 1, n // 2, n - 2, n - 1):
+                P = pcodec.g1_lem_to_ints(fq, before[sid][i * sz:(i + 1) * sz], 1)[0]
+                Q = pcodec.g1_lem_to_ints(fq, after[sid][i * sz:(i + 1) * sz], 1)[0]
+                check(Q == (None if P is None else hc.g1_mul(cv, P, d_inv)),
+                      f"section {sid} point {i} is not the old one times (d1 d2)^-1")
+        _, _, _, vk2 = zkey_mpc._parse(z2)
+        check(vk0["delta_1"] == cv.g1 and vk2["delta_1"] == hc.g1_mul(cv, cv.g1, d)
+              and vk2["delta_2"] == hc.g2_mul(cv, cv.g2, d),
+              "the header's delta is not (d1 d2) G")
+        check(all(before[s] == after[s] for s in range(3, 8)), "sections 3-7 changed")
+        del before, after
+        log("  sections 8 and 9 at five indices == old point x (d1 d2)^-1 on host bigints; "
+            "delta_1, delta_2 == (d1 d2) G")
+
+        with recorded_shapes() as vshapes:
+            reset_counts()
+            lg = Lines()
+            steps["verify_from_init"], ok = wall_ms(lambda: verify(z2, lg))
+            launches["verify_from_init"] = counts()
+        check(ok and not lg.lines, f"verify_from_init rejects the final key: {lg.lines}")
+        check(launches["verify_from_init"]["msm_scan"] == pred["verify_from_init_msm_scan"],
+              f"verify_from_init launched {launches['verify_from_init']['msm_scan']} K-scans")
+        sec8 = bytearray(BinFile(z2, "zkey").read_section(8))
+        sec8[:sz], sec8[sz:2 * sz] = sec8[sz:2 * sz], sec8[:sz]
+        lg_l = Lines()
+        steps["verify_l_swapped"], ok = wall_ms(lambda: verify(
+            with_section(z2, 8, bytes(sec8)), lg_l))
+        check(not ok and lg_l.lines == ["L section does not match"],
+              f"verify with two L points swapped: {ok} {lg_l.lines}")
+        mp = zkey_mpc.read_mpc_params(cv, BinFile(z2, "zkey").read_section(10))
+        t0 = mp.contributions[-1].transcript
+        mp.contributions[-1].transcript = bytes([t0[0] ^ 1]) + t0[1:]
+        lg_t = Lines()
+        steps["verify_transcript_flipped"], ok = wall_ms(lambda: verify(
+            with_section(z2, 10, zkey_mpc.write_mpc_params(cv, mp)), lg_t))
+        check(not ok and lg_t.lines == ["INVALID(1): Inconsistent transcript"],
+              f"verify with a flipped transcript byte: {ok} {lg_t.lines}")
+        del sec8, mp
+        log(f"  verify_from_init: {steps['verify_from_init']:.0f} ms, True; launches "
+            f"{launches['verify_from_init']} (predicted {pred['verify_from_init_msm_scan']} "
+            f"K-scans); two L points swapped: False in {steps['verify_l_swapped']:.0f} ms; "
+            f"a transcript byte flipped: False in {steps['verify_transcript_flipped']:.0f} ms")
+        steps["verify_from_r1cs"], ok = wall_ms(lambda: zkey_mpc.verify_from_r1cs(
+            r1cs, ptau, z2, rng=np.random.default_rng(PHASE2_VERIFY_SEED), device=dev))
+        check(ok, "verify_from_r1cs rejects the final key")
+        log(f"  verify_from_r1cs (setup_from_ptau + verify): {steps['verify_from_r1cs']:.0f} ms, "
+            "True")
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        steps["export_mpc_params"], mpc = wall_ms(lambda: bellman.export_mpc_params(
+            z2, device=dev))
+        launches["export_mpc_params"] = counts()
+        steps["bellman_contribute"], (resp, bh) = wall_ms(lambda: bellman.bellman_contribute(
+            cv, mpc, rng=ChaCha(PHASE2_BELLMAN_SEED), device=dev))
+        reset_counts()
+        steps["import_mpc_params"], z3 = wall_ms(lambda: bellman.import_mpc_params(
+            z2, resp, name="bellman", device=dev))
+        launches["import_mpc_params"] = counts()
+        check(z3 is not False, "import_mpc_params refuses the Bellman response")
+        lg = Lines()
+        steps["verify_imported"], ok = wall_ms(lambda: verify(z3, lg))
+        check(ok and not lg.lines, f"verify_from_init rejects the imported key: {lg.lines}")
+        cs_pos = (sz * 3 + 2 * sz * 3 + 8 + sz * meta["n_vars"] + 4 + sz * (domain - 1)
+                  + 4 + sz * meta["n_vars"] + 4 + sz * meta["n_vars"] + 4
+                  + 2 * sz * meta["n_vars"])
+        check(mpc[cs_pos:cs_pos + 64] == BinFile(z2, "zkey").read_section(10)[:64],
+              "the csHash is not where the MPCParams layout puts it")
+        bad = bytearray(resp)
+        bad[cs_pos] ^= 1
+        lg = Lines()
+        check(bellman.import_mpc_params(z2, bytes(bad), logger=lg, device=dev) is False
+              and lg.lines == ["Hash of the original circuit does not match with the MPC one"],
+              f"a response with a flipped csHash byte: {lg.lines}")
+        log(f"  export_mpc_params: {steps['export_mpc_params']:.0f} ms ({len(mpc)} bytes), "
+            f"K-field launches {launches['export_mpc_params']['field_ops']} (predicted "
+            f"{pred['export_mpc_params']}); bellman_contribute "
+            f"{steps['bellman_contribute']:.0f} ms; import_mpc_params "
+            f"{steps['import_mpc_params']:.0f} ms, K-field launches "
+            f"{launches['import_mpc_params']['field_ops']} (predicted "
+            f"{pred['import_mpc_params']}); verify of the imported key "
+            f"{steps['verify_imported']:.0f} ms: True; a flipped csHash byte: refused")
+        del mpc, resp, bad
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+
+    bad_pub = lambda pubs: [str(int(pubs[0]) + 1)] + pubs[1:]
+    for name, z in (("final", z2), ("imported", z3)):
+        zk = read_groth16_zkey(z)
+        steps[f"prove_{name}"], (proof, publics) = wall_ms(
+            lambda: groth16.prove(zk, wit, r=0x2121, s=0x4343, device=dev))
+        gvk = groth16.export_verification_key(zk)
+        check(groth16.verify(gvk, publics, proof), f"the proof with the {name} key fails")
+        check(not groth16.verify(gvk, bad_pub(publics), proof),
+              f"tampered public accepted ({name} key)")
+        del zk
+        torch.cuda.empty_cache()
+    log(f"  Groth16 proves with the final key {steps['prove_final']:.0f} ms and the imported "
+        f"key {steps['prove_imported']:.0f} ms: pairing checks pass, tampered publics rejected")
+
+    vk = groth16.export_verification_key(read_groth16_zkey(z2))
+    src = solidity.export_verifier(vk)
+    consts = dict(re.findall(r"constant (\w+) = (\d+);", src))
+    want = {"r": fr.p, "q": fq.p, "alphax": vk["vk_alpha_1"][0], "alphay": vk["vk_alpha_1"][1]}
+    for nm, key in (("beta", "vk_beta_2"), ("gamma", "vk_gamma_2"), ("delta", "vk_delta_2")):
+        (x1, x2), (y1, y2) = vk[key][0], vk[key][1]
+        want.update({nm + "x1": x1, nm + "x2": x2, nm + "y1": y1, nm + "y2": y2})
+    for i, ic in enumerate(vk["IC"]):
+        want.update({f"IC{i}x": ic[0], f"IC{i}y": ic[1]})
+    check(not re.findall(r"\{[a-zA-Z_]+\}", src), "a placeholder is left in the verifier")
+    check({k: consts.get(k) for k in want} == {k: str(int(v)) for k, v in want.items()},
+          "the verifier's constants differ from the key's")
+    log(f"  Solidity verifier of the final key: {len(src)} characters, {len(want)} constants "
+        "== the key's, no placeholder")
+
+    # one stage of the H points' group iNTT alone
+    stage = blocks_stage_busy(cv, False, [(BinFile(z2, "zkey").read_section(9),
+                                           domain.bit_length() - 1)], dev, "phase 2 export")
+
+    # the kernels at the shapes the phase gave them
+    top = [n for (fname, n), _ in fshapes.most_common() if fname == "bn254_fq"][:3]
+    log(f"  K-field lane counts, most launched first: "
+        f"{[(k, v) for k, v in fshapes.most_common(6)]}")
+    field_cases(dev, gen, errs, top, "phase 2's batches")
+    n1 = min(1 << 16, n_l)
+    x1, y1, _ = pcodec.g1_lem_from_bytes(fq, BinFile(z2, "zkey").read_section(8)[:n1 * sz], n1)
+    scans = ceremony_scans(cv, vshapes["msm_scan"],
+                           {"g1": (ftorch.to_tensor(x1, dev), ftorch.to_tensor(y1, dev))},
+                           gen, rate32, errs, path="phase 2 verify")
+    check(not vshapes["digit_mm"], "verify_from_init launched K-mm")
+    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "phase 2 verify", errs)
+             for sh, k in sorted(vshapes["digit_mm_norm"].items())]
+    total = time.perf_counter() - t_phase
+    log(f"  phase 2 steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"  phase 2 peak device memory {peak:.2f} GiB; phase total {total:.1f} s")
+    return {"domain": domain, "n_l": n_l, "steps_ms": steps, "launches": launches,
+            "predicted": pred, "stage": stage, "peak_gib": peak, "total_s": total,
+            "scans": scans, "norms": norms}
+
+
 def sass_tensor_core_counts():
     """IGMMA (wgmma) and IMMA (mma.sync) instructions in the SASS of the two
     digit-matmul libraries; fails unless each holds some."""
@@ -1848,6 +2122,7 @@ def main():
     sl = setup["launches"]
     entries["msm_scan"].append(setup.pop("scan"))
     ptau = setup.pop("ptau")
+    g16_zkey, (chain_r1cs, chain_wit) = setup.pop("zkey"), setup.pop("chain")
     torch.cuda.empty_cache()
     log(f"[FFLONK at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
     ff = phase_fflonk(dev, gen, errs, rate32, ptau)
@@ -1856,13 +2131,19 @@ def main():
     log(f"[the powers-of-tau ceremony at power {SETUP_POWER}] "
         f"({time.perf_counter() - t0:.1f} s so far)")
     cer = phase_ceremony(dev, gen, errs, rate32, ptau)
-    del ptau
     cl = cer["launches"]
+    torch.cuda.empty_cache()
+    log(f"[Groth16 phase 2 at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
+    mpc = phase_zkey_mpc(dev, gen, errs, rate32, ptau, g16_zkey, chain_r1cs, chain_wit)
+    del ptau, g16_zkey, chain_r1cs, chain_wit
+    ml = mpc["launches"]
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
     # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
     # FFLONK prove's, `launches_fflonk_setup` its setups', `launches_ceremony`
-    # phase 13's (contribute, prepare_phase2, verify).  `ms`, `plain_ms` and
+    # phase 13's (contribute, prepare_phase2, verify), `launches_phase2` phase
+    # 14's (contribute, verify_from_init, export and import of the MPC
+    # params).  `ms`, `plain_ms` and
     # `bound_ms` belong to `shape`, the shape that path gave the kernel most
     # often.  `shapes` lists every shape the paths gave the kernel (K-field
     # has too many), each with its own launches, error, times and bound.
@@ -1877,12 +2158,12 @@ def main():
          dict(entries["field_ops"], shape=[16, 1 << 20]), []),
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
          "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
-         [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"]),
+         [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
-         [norm_big] + pnorms + ff["norms"] + cer["norms"]),
+         [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -1897,6 +2178,7 @@ def main():
                  launches_fflonk_setup={step: c[kname] for step, c in fl.items()
                                         if step != "prove"},
                  launches_ceremony={step: c[kname] for step, c in cl.items()},
+                 launches_phase2={step: c[kname] for step, c in ml.items()},
                  shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
         kernels.append(k)
@@ -1904,11 +2186,13 @@ def main():
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     kernels[0]["launches_by_op_fflonk"] = fl["prove"]["field_by_op"]
     kernels[0]["launches_by_op_ceremony"] = {step: c["field_by_op"] for step, c in cl.items()}
+    kernels[0]["launches_by_op_phase2"] = {step: c["field_by_op"] for step, c in ml.items()}
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
     log(f"setup phase: {json.dumps(setup)}")
     log(f"fflonk phase: {json.dumps({k: v for k, v in ff.items() if k not in ('scans', 'norms')})}")
     log(f"ceremony phase: {json.dumps({k: v for k, v in cer.items() if k not in ('scans', 'norms')})}")
+    log(f"phase 2: {json.dumps({k: v for k, v in mpc.items() if k not in ('scans', 'norms')})}")
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -693,12 +693,12 @@ def _section_points(cv, pt: PtauFile, sid: int, g2: bool, n: int):
     return conv(cv.fq, pt.sections[sid], n)
 
 
-def _u32_limbs(fr, vals, device):
-    """numpy uint64 values below 2^32 -> plain (NL, n) limbs on `device`."""
+def _u64_limbs(fr, vals, device):
+    """numpy uint64 values -> plain (NL, n) limbs on `device`."""
     v = np.asarray(vals, dtype=np.uint64)
     limbs = np.zeros((fr.nl, v.shape[0]), dtype=np.uint32)
-    limbs[0] = v & 0xFFFF
-    limbs[1] = (v >> 16) & 0xFFFF
+    for i in range(4):
+        limbs[i] = (v >> np.uint64(16 * i)) & np.uint64(0xFFFF)
     return ftorch.to_tensor(limbs, device)
 
 
@@ -769,7 +769,7 @@ def verify(pt: PtauFile, logger=None, rng: "np.random.Generator" = None,
             results[6] = _section_points(cv, pt, 6, True, 1)[0]
             continue
         next_h.update(lem_to_u(cv, pt.sections[sid], n, g2, device))
-        scalars = _u32_limbs(cv.fr, rng.integers(0, 1 << 32, n - 1, dtype=np.uint64),
+        scalars = _u64_limbs(cv.fr, rng.integers(0, 1 << 32, n - 1, dtype=np.uint64),
                              device)
         sz = _sz(cv, g2)
         sec = memoryview(pt.sections[sid])
@@ -860,7 +860,7 @@ def _verify_lagrange(cv, pt, tau_sid, lag_sid, g2, rng, logger=None,
                        + b"\0" * sz)
         else:
             tau_lem = pt.sections[tau_sid][:n * sz]
-        sc = _u32_limbs(fr, rs, device)
+        sc = _u64_limbs(fr, rs, device)
         res_tau = _msm_lem(cv, tau_lem, sc, g2, device)
 
         # fft of the random vector (plain->Montgomery->fft->plain)

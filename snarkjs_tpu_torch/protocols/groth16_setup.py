@@ -5,8 +5,9 @@ Two entry points:
 
 * ``setup_from_secrets(r1cs, tau, alpha, beta, ...)`` makes the key from the
   toxic-waste secrets: the Lagrange values L_c(tau) on host bigints (one
-  batch inversion), every point section by one batched same-base scalar
-  multiplication on the card (`jac.batch_scalar_mul_limbs`, K-field).  It is
+  batch inversion), the G1 point sections by one batched same-base scalar
+  multiplication on the card and the G2 one by another
+  (`jac.batch_scalar_mul_limbs`, K-field).  It is
   what a one-participant ceremony followed by ``zkey new`` gives.
 * ``setup_from_ptau(r1cs, ptau)`` composes the key from a prepared
   powers-of-tau file's Lagrange sections as the reference does (A_s = sum
@@ -42,7 +43,7 @@ from ..formats import zkey as zkey_fmt
 from ..formats.binfile import BinFileWriter, SectionWriter
 from ..formats.r1cs import R1cs
 
-HOST_ROUTE_MAX = 512     # up to this many scalars, host bigints
+HOST_ROUTE_MAX = 512     # on a CPU device, up to this many scalars on host bigints
 
 
 def domain_size_for(r1cs: R1cs) -> int:
@@ -85,13 +86,15 @@ def lagrange_at(fr, tau: int, n: int):
 def _points_from_scalars(cv, scalars, g2=False, device=None):
     """[k_i]G as (x, y, inf) Montgomery limb arrays (numpy).
 
-    Up to HOST_ROUTE_MAX scalars on host bigints, as the JAX package does;
-    more go to a batched double-and-add on `device` (None: the card), in
-    batches of jac.DEVICE_BATCH points, as many steps as the batch's largest
-    scalar has bits, each batch turned affine with one batched inversion."""
+    On `device` (None: the card) a batched double-and-add in batches of
+    jac.DEVICE_BATCH points, as many steps as the batch's largest scalar has
+    bits, each batch turned affine with one batched inversion.  On a CPU
+    device up to HOST_ROUTE_MAX scalars go to host bigints instead, as the
+    JAX package does."""
+    device = devmod.resolve(device)
     fr, fq = cv.fr, cv.fq
     n = len(scalars)
-    if n <= HOST_ROUTE_MAX:
+    if device.type == "cpu" and n <= HOST_ROUTE_MAX:
         gen = cv.g2 if g2 else cv.g1
         mul = hc.g2_mul if g2 else hc.g1_mul
         pts = [mul(cv, gen, int(k) % fr.p) for k in scalars]
@@ -110,7 +113,6 @@ def _points_from_scalars(cv, scalars, g2=False, device=None):
                 fq, [fq.to_mont(1 if p is None else p[1]) for p in pts])
         inf = np.array([p is None for p in pts], dtype=bool)
         return xs, ys, inf
-    device = devmod.resolve(device)
     f = field_ops(ftorch.get_ctx(fq.name), 2 if g2 else 1, device)
     gen = cv.g2 if g2 else cv.g1
     sl = ftorch.np_from_ints(fr, scalars)
@@ -140,6 +142,14 @@ def _cat_np(parts):
     if isinstance(parts[0], tuple):
         return tuple(_cat_np([p[i] for p in parts]) for i in range(len(parts[0])))
     return np.concatenate(parts, axis=-1)
+
+
+def _split_np(t, sizes):
+    """Split the point arrays of `_points_from_scalars` along their last
+    axis into consecutive parts of the given sizes."""
+    if isinstance(t, tuple):
+        return list(zip(*(_split_np(x, sizes) for x in t)))
+    return np.split(t, np.cumsum(sizes)[:-1], axis=-1)
 
 
 def _r2_form(fr, limbs, device) -> np.ndarray:
@@ -204,13 +214,12 @@ def setup_from_secrets(r1cs: R1cs, tau: int, alpha: int, beta: int,
 
     h_scal = [L2[2 * i + 1] * delta_inv % p for i in range(domain)]
 
-    pts = lambda ks, g2=False: _points_from_scalars(cv, ks, g2, device)
-    a_pts = pts(u)
-    b1_pts = pts(v)
-    b2_pts = pts(v, True)
-    c_pts = pts(c_scal)
-    h_pts = pts(h_scal)
-    ic_bytes = pcodec.g1_lem_to_bytes(fq, *pts(ic_scal))
+    # every G1 point set in one batch, the G2 one in another
+    sets = (u, v, c_scal, h_scal, ic_scal)
+    g1_all = _points_from_scalars(cv, [k for ks in sets for k in ks], False, device)
+    a_pts, b1_pts, c_pts, h_pts, ic_pts = _split_np(g1_all, [len(ks) for ks in sets])
+    b2_pts = _points_from_scalars(cv, v, True, device)
+    ic_bytes = pcodec.g1_lem_to_bytes(fq, *ic_pts)
     ic = pcodec.g1_lem_to_ints(fq, ic_bytes, n_public + 1)
 
     # coefficient list: m<2 entries + the public-binding rows

@@ -117,7 +117,7 @@ def ptau7_bytes() -> bytes:
     for sid, (ks, g2) in cs.ptau_scalars(cv, 7, TAU, ALPHA, BETA).items():
         enc = tpc.g2_lem_to_bytes if g2 else tpc.g1_lem_to_bytes
         pt.sections[sid] = b"".join(
-            enc(cv.fq, *tgs._points_from_scalars(cv, ks[i:i + 512], g2))
+            enc(cv.fq, *tgs._points_from_scalars(cv, ks[i:i + 512], g2, device="cpu"))
             for i in range(0, len(ks), 512))
     return pt.tobytes()
 

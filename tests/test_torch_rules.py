@@ -40,7 +40,8 @@ PORT_MODULES = [
     "snarkjs_tpu_torch.utils.blake2b", "snarkjs_tpu_torch.ceremony.ptau_ops",
     "snarkjs_tpu_torch.protocols.fflonk", "snarkjs_tpu_torch.protocols.fflonk_setup",
     "snarkjs_tpu_torch.ceremony.keypair", "snarkjs_tpu_torch.utils.chacha",
-    "snarkjs_tpu_torch.utils.spool",
+    "snarkjs_tpu_torch.utils.spool", "snarkjs_tpu_torch.ceremony.zkey_mpc",
+    "snarkjs_tpu_torch.ceremony.bellman", "snarkjs_tpu_torch.export.solidity",
 ]
 
 
@@ -158,16 +159,16 @@ def test_fflonk_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_setup_parts_raise_without_cuda(monkeypatch):
-    """Groth16's `setup_from_secrets`, the device route of
-    `_points_from_scalars` and `lem_to_u` default to the card and raise
-    without one."""
+    """Groth16's `setup_from_secrets`, `_points_from_scalars` (whatever the
+    number of scalars) and `lem_to_u` default to the card and raise without
+    one."""
     from snarkjs_tpu_torch.ceremony import ptau_ops
     from snarkjs_tpu_torch.curves import host_curve as hc
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     r1cs, _ = _setup_inputs()
     for call in (lambda: g16setup.setup_from_secrets(r1cs, 5, 6, 7),
-                 lambda: g16setup._points_from_scalars(hc.BN254, list(range(513))),
+                 lambda: g16setup._points_from_scalars(hc.BN254, [1]),
                  lambda: ptau_ops.lem_to_u(hc.BN254, bytes(64), 1, False)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -208,6 +209,33 @@ def test_ceremony_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert ptau_ops.export_json(ptau_ops.truncate(pt, 1))["power"] == 1
+
+
+def test_phase2_entry_points_raise_without_cuda(monkeypatch):
+    """Phase 2's entry points (zkey contribute, beacon, verify, the Bellman
+    export / contribute / import) default to the card and raise without one,
+    however small the key."""
+    from snarkjs_tpu_torch.ceremony import bellman, zkey_mpc
+    from snarkjs_tpu_torch.curves import host_curve as hc
+    from snarkjs_tpu_torch.utils.chacha import ChaCha
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, pt = _setup_inputs()
+    with open(os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures",
+                           "tiny3_bn128_from_ptau.zkey"), "rb") as f:
+        zk = f.read()
+    calls = [
+        lambda: zkey_mpc.contribute(zk, rng=ChaCha([1] * 8)),
+        lambda: zkey_mpc.beacon(zk, b"\x01" * 32, 3),
+        lambda: zkey_mpc.verify_from_init(zk, pt, zk),
+        lambda: zkey_mpc.verify_from_r1cs(_setup_inputs()[0], pt, zk),
+        lambda: bellman.export_mpc_params(zk),
+        lambda: bellman.import_mpc_params(zk, b""),
+        lambda: bellman.bellman_contribute(hc.BN254, b"", rng=ChaCha([1] * 8)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_failed_blake2b_build_raises(monkeypatch, tmp_path):
@@ -467,3 +495,38 @@ def test_ceremony_chain_on_card_equals_stored_jax(card):
     assert sum(fcuda.LAUNCHES.values()) > 0 and msm_gpu.LAUNCHES[0] > scans
     want = tc.stored()["bn128_p4"]
     assert got == {k: want[k] for k in got}
+
+
+@pytest.mark.cuda
+def test_phase2_chain_on_card_equals_cpu(card):
+    """Phase 2 on the bn128 domain-8 key on the card, where every apply-key,
+    group iNTT and MSM goes through the kernels whatever its size (K-field,
+    K-scan): contribute, beacon, verify, the Bellman export, round and
+    import equal the CPU run's, which tests/test_torch_zkey_mpc.py and
+    tests/test_torch_bellman.py hold equal to the JAX package's."""
+    from snarkjs_tpu_torch.ceremony import bellman, zkey_mpc
+    from snarkjs_tpu_torch.curves import host_curve as thc
+    from snarkjs_tpu_torch.curves import msm_gpu
+    from snarkjs_tpu_torch.fields import fcuda
+    from snarkjs_tpu_torch.formats import ptau as tptau
+    from snarkjs_tpu_torch.utils.chacha import ChaCha
+    from tests import _torch_phase2 as p2
+
+    zk, pt, _, _ = p2.CASES["bn128_d8"]
+    init, ptau = p2.fixture(zk), tptau.read_ptau(p2.fixture(pt))
+
+    def run(dev):
+        (z1, h1), (z2, h2) = p2.chain(zkey_mpc, ChaCha, init, device=dev)
+        ok = zkey_mpc.verify_from_init(init, ptau, z2,
+                                       rng=np.random.default_rng(p2.VERIFY_SEED), device=dev)
+        mpc = bellman.export_mpc_params(z2, device=dev)
+        resp, h = bellman.bellman_contribute(thc.BN254, mpc, rng=ChaCha(p2.SEED_BELLMAN),
+                                             device=dev)
+        return z1, h1, z2, h2, ok, mpc, resp, h, bellman.import_mpc_params(z2, resp, device=dev)
+
+    fcuda.reset_counts()
+    scans = msm_gpu.LAUNCHES[0]
+    got = run(card)
+    assert sum(fcuda.LAUNCHES.values()) > 0 and msm_gpu.LAUNCHES[0] == scans + 4
+    assert got == run("cpu")
+    assert got[4] is True and got[-1] is not False
