@@ -107,7 +107,26 @@ Phases (any failure exits non-zero before the last line):
      the code; one stage of the H points' group iNTT timed and profiled
      alone; K-field, K-scan and K-mm-norm against their plain versions at
      the shapes the phase gave them;
- 15. K-scan's registers, local memory and spills, the kernels line, then the
+ 15. the CLI and witness calculation at domain 2^18: the 200,000-constraint
+     chain with circom's coefficients as circom would give it (.wasm with
+     circom 2's witness ABI, .r1cs, .sym, input.json from
+     tests/_wasm_chain.py) and phase 10's .ptau written to a temporary
+     directory; `python -m snarkjs_tpu_torch r1cs info` once as a
+     subprocess, then every step through `cli.main` in-process, launch
+     counts set to 0 just before each and read just after (`launches_cli`):
+     `wtns calculate` (the native VM's instantiation, calculation and
+     read-out timed alone; its .wtns byte-equal to circom_chain's witness;
+     the Python VM on a chain of 2^10 equal to the native one), `wtns check`
+     (accepts; 16 K-field launches as counted; a flipped value exits 1),
+     `groth16 setup` (byte-equal to phase 10's
+     key), `groth16 prove` / `fullprove` / `verify` (a tampered public exits
+     1) and `zkey export soliditycalldata`, `plonk setup` / `fullprove` /
+     `verify`, `fflonk setup` / `fullprove` / `verify` on a chain of 60,000
+     (domain 2^16); each step's wall time beside the in-process time of the
+     same call in the earlier phases; the shapes every CLI step gave K-field,
+     K-scan and K-mm-norm recorded, and each kernel held against its plain
+     version at every one of them;
+ 16. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
@@ -121,17 +140,20 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import io
 import json
+import logging
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from snarkjs_tpu_torch import _build
+from snarkjs_tpu_torch import _build, cli, tools
 from snarkjs_tpu_torch.ceremony import bellman, keypair, ptau_ops, zkey_mpc
 from snarkjs_tpu_torch.curves import host_curve as hc
 from snarkjs_tpu_torch.curves import msm as msm_mod
@@ -141,8 +163,8 @@ from snarkjs_tpu_torch.fields import fcuda, ftorch
 from snarkjs_tpu_torch.formats import points as pcodec
 from snarkjs_tpu_torch.formats import ptau as ptau_fmt
 from snarkjs_tpu_torch.formats.binfile import BinFile
-from snarkjs_tpu_torch.formats.r1cs import R1cs
-from snarkjs_tpu_torch.formats.wtns import Witness
+from snarkjs_tpu_torch.formats.r1cs import R1cs, read_r1cs
+from snarkjs_tpu_torch.formats.wtns import Witness, write_wtns
 from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_groth16_zkey, read_plonk_zkey
 from snarkjs_tpu_torch.formats.zkey import read_fflonk_zkey
 from snarkjs_tpu_torch.ntt import ntt_mm
@@ -150,6 +172,9 @@ from snarkjs_tpu_torch.poly import fops
 from snarkjs_tpu_torch.protocols import groth16, groth16_setup, plonk, plonk_setup
 from snarkjs_tpu_torch.protocols import fflonk, fflonk_setup
 from snarkjs_tpu_torch.utils.chacha import ChaCha
+from snarkjs_tpu_torch.wasm import native as wasm_native
+from snarkjs_tpu_torch.wasm import witness_calculator as wvm
+from tests import _wasm_chain as wasm_chain
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "snarkjs_tpu_torch", "fixtures")
@@ -299,8 +324,9 @@ def rand_field(fp, n, dev, gen, wide=False):
     else:
         x[-1] %= ptop
         edges = [0, 1, fp.p - 1]
-    x[:, :len(edges)] = ftorch.to_tensor(
-        np.array([fp.limbs(v) for v in edges], dtype=np.uint32).T, dev)
+    k = min(n, len(edges))
+    x[:, :k] = ftorch.to_tensor(
+        np.array([fp.limbs(v) for v in edges[:k]], dtype=np.uint32).T, dev)
     return x
 
 
@@ -940,13 +966,14 @@ def plonk_circuit(fr, nc=PLONK_CONSTRAINTS):
     return r1cs, Witness(n8=fr.n8, q=fr.p, n=len(w), values=ftorch.np_from_ints(fr, w))
 
 
-def circom_chain(fr):
+def circom_chain(fr, nc=PLONK_CONSTRAINTS):
     """`plonk_circuit`'s chain with the coefficients circom writes for
     `y <== x * x`: p - 1 on one factor and on the output ((-x) x = -y), the
     negated factor alternating between A and B.  Every point section of the
     Groth16 setup then holds full-width scalars, so each of its segmented
-    MSMs runs all 254 double-and-add steps.  The witness is the chain's."""
-    r1cs, wit = plonk_circuit(fr)
+    MSMs runs all 254 double-and-add steps.  The witness is the chain's.
+    `tests/_wasm_chain.py` writes this circuit's .r1cs and its circom .wasm."""
+    r1cs, wit = plonk_circuit(fr, nc)
     i = np.arange(r1cs.n_constraints)
     neg = np.array(fr.limbs(fr.p - 1), dtype=np.uint32)[:, None]
     vals = r1cs.vals.copy()          # constraint i: A, B, C at 3i, 3i + 1, 3i + 2
@@ -1592,20 +1619,21 @@ def ceremony_predicted(power):
                 (jax(power + 1) + 2 * jax(power)) * g1 + jax(power) * g2}
 
 
-def field_cases(dev, gen, errs, sizes, what):
-    """K-field add / sub / mont_mul on bn254 Fq against the plain versions at
-    the given element counts (shapes a path gave the kernel)."""
-    ctx = ftorch.get_ctx("bn254_fq")
+def field_cases(dev, gen, errs, sizes, what, field="bn254_fq"):
+    """K-field add / sub / mont_mul / neg on `field` against the plain
+    versions at the given element counts (shapes a path gave the kernel)."""
+    ctx = ftorch.get_ctx(field)
     for n in sizes:
         a, b = rand_field(ctx.fp, n, dev, gen), rand_field(ctx.fp, n, dev, gen).flip(1).contiguous()
-        for op, fn in (("add", ftorch.add), ("sub", ftorch.sub), ("mont_mul", ftorch.mont_mul)):
+        for op, fn in (("add", ftorch.add), ("sub", ftorch.sub), ("mont_mul", ftorch.mont_mul),
+                       ("neg", lambda ctx, a, b: ftorch.neg(ctx, a))):
             got = fn(ctx, a, b)
             with ftorch.plain_versions():
                 want = fn(ctx, a, b)
             e = max_abs_err(got, want)
-            check(e == 0, f"K-field {op} bn254_fq at {n} differs from plain ({e})")
+            check(e == 0, f"K-field {op} {field} at {n} differs from plain ({e})")
             errs["field_ops"] = max(errs["field_ops"], e)
-    log(f"  K-field bn254_fq: add sub mont_mul == plain at {list(sizes)} ({what})")
+    log(f"  K-field {field}: add sub mont_mul neg == plain at {list(sizes)} ({what})")
 
 
 def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
@@ -2049,6 +2077,281 @@ def phase_zkey_mpc(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit):
             "scans": scans, "norms": norms}
 
 
+# ------------------------------------------------------ phase 15: the CLI
+
+CLI_PY_VM_CONSTRAINTS = 1 << 10   # the Python VM's chain (about 100x slower)
+# wtns check's launches counted from the code (tools.wtns_check): to_mont and
+# mont_mul on the entries, three segment sums of 4, to_mont and mont_mul
+WTNS_CHECK_PREDICTED = {"field_ops": 16, "msm_scan": 0, "digit_mm": 0, "digit_mm_norm": 0}
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of the CLI's logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def timed_parts():
+    """Wall ms of the witness calculator's parts while the block runs:
+    instantiation, calculation (init and the inputs), read-out (getWitness
+    and the shared-memory words of every value), the .wtns bytes."""
+    parts = {}
+    calc = wvm.WitnessCalculator
+    saved = (calc.__init__, calc._set_inputs, calc._read_witness, wvm.wtns_bytes)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[name] = (time.perf_counter() - t) * 1e3
+        return run
+
+    calc.__init__ = timed("instantiate", saved[0])
+    calc._set_inputs = timed("calculate", saved[1])
+    calc._read_witness = timed("read-out", saved[2])
+    wvm.wtns_bytes = timed(".wtns bytes", saved[3])
+    try:
+        yield parts
+    finally:
+        calc.__init__, calc._set_inputs, calc._read_witness, wvm.wtns_bytes = saved
+
+
+def cli_step(log_lines, words):
+    """`cli.main(words)` in-process, its launch counts set to 0 just before
+    and read just after: (exit code, stdout, log lines, wall ms, counts).
+    An exception inside the step ends the script."""
+    out = io.StringIO()
+    log_lines.lines = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(w) for w in words])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    return rc, out.getvalue(), list(log_lines.lines), ms, counts()
+
+
+def phase_cli(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit, inprocess_ms):
+    """The CLI and witness calculation at domain 2^18: the 200,000-constraint
+    chain with circom's coefficients as circom would give it (.wasm, .r1cs,
+    .sym, input.json from tests/_wasm_chain.py) and phase 10's .ptau and
+    Groth16 key, driven through `python -m snarkjs_tpu_torch` once (a
+    subprocess) and then through `cli.main` in-process, each step's launch
+    counts set to 0 just before and read just after.  The native VM's
+    instantiation, calculation and read-out are timed apart inside the
+    `wtns calculate` step; the Python VM runs a chain of 2^10.  Each step's
+    wall time stands beside the in-process time of the same call in the
+    earlier phases (`inprocess_ms`).  The shapes the steps give K-field,
+    K-scan and K-mm-norm are recorded, and each kernel is held against its
+    plain version at every one of them."""
+    cv = hc.BN254
+    fr = cv.fr
+    nc = r1cs.n_constraints
+    t_phase = time.perf_counter()
+    steps, launches = {}, {}
+    seen = {k: collections.Counter() for k in ("digit_mm", "digit_mm_norm", "msm_scan")}
+    fseen = collections.Counter()
+    handler = LogLines()
+    logger = logging.getLogger("snarkjs_tpu_torch")
+    logger.addHandler(handler)
+    t = time.perf_counter()
+    wasm_native._lib()
+    steps["wasmvm build (g++)"] = (time.perf_counter() - t) * 1e3
+
+    def step(name, words, expect_rc=0):
+        with recorded_shapes() as shapes, field_shapes() as fshapes:
+            rc, out, lines, ms, c = cli_step(handler, words)
+        for k, v in shapes.items():
+            seen[k].update(v)
+        fseen.update(fshapes)
+        check(rc == expect_rc, f"CLI {name}: exit code {rc}, expected {expect_rc}")
+        steps[name], launches[name] = ms, c
+        log(f"  {name}: {ms:.0f} ms, exit {rc}, launches {c}")
+        return out, lines
+
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            P = lambda fn: os.path.join(d, fn)
+            t = time.perf_counter()
+            files = wasm_chain.write_chain(d, fr.p, nc)
+            ptau.save(P("pot19.ptau"))
+            steps["write files"] = (time.perf_counter() - t) * 1e3
+            back = read_r1cs(files["chain.r1cs"])
+            check((back.n_wires, back.n_pub_in, back.n_constraints)
+                  == (r1cs.n_wires, r1cs.n_pub_in, r1cs.n_constraints)
+                  and all(np.array_equal(getattr(back, k), getattr(r1cs, k))
+                          for k in ("m", "c", "s", "vals")),
+                  "the generated .r1cs is not phase 10's chain")
+            log(f"  chain files and the power-{SETUP_POWER} .ptau written in "
+                f"{steps['write files']:.0f} ms; the .r1cs reads back as phase 10's chain")
+
+            # the entry point as a user runs it, on a machine with no jax
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "snarkjs_tpu_torch", "r1cs", "info",
+                                   files["chain.r1cs"]], cwd=HERE, capture_output=True,
+                                  text=True, timeout=600)
+            steps["python -m snarkjs_tpu_torch r1cs info"] = (time.perf_counter() - t) * 1e3
+            check(proc.returncode == 0 and f"# of Constraints: {nc}" in proc.stderr,
+                  f"python -m snarkjs_tpu_torch r1cs info: {proc.returncode} {proc.stderr[-500:]}")
+            log(f"  python -m snarkjs_tpu_torch r1cs info: exit 0 in "
+                f"{steps['python -m snarkjs_tpu_torch r1cs info']:.0f} ms")
+
+            # witness calculation through the CLI, the native VM's parts timed
+            # inside that step
+            want = write_wtns(fr, wit.values)
+            with timed_parts() as parts:
+                step("wtns calculate", ["wtns", "calculate", files["chain.wasm"],
+                                        files["input.json"], P("witness.wtns")])
+            with open(P("witness.wtns"), "rb") as f:
+                check(f.read() == want, "CLI wtns calculate: .wtns differs from "
+                                        "write_wtns of circom_chain's witness")
+            for part, ms in parts.items():
+                steps[f"native VM: {part}"] = ms
+            rate = nc / parts["calculate"] * 1e3
+            log(f"  native VM at {nc} constraints: instantiate {parts['instantiate']:.0f} ms, "
+                f"calculate {parts['calculate']:.0f} ms ({rate:.0f} constraints/s), read-out "
+                f"{parts['read-out']:.0f} ms ({(nc + 2) * (wasm_chain.N32 + 1)} ctypes calls), "
+                f".wtns bytes {parts['.wtns bytes']:.0f} ms; == write_wtns of circom_chain's "
+                "witness")
+            small = wasm_chain.write_chain(P("small"), fr.p, CLI_PY_VM_CONSTRAINTS)
+            for vm in ("python", "native"):
+                step(f"wtns calculate 2^10 --vm={vm}",
+                     ["wtns", "calculate", small["chain.wasm"], small["input.json"],
+                      P(f"small_{vm}.wtns"), f"--vm={vm}"])
+            with open(P("small_python.wtns"), "rb") as f, open(P("small_native.wtns"), "rb") as g:
+                py_bytes = f.read()
+                check(py_bytes == g.read() == write_wtns(
+                    fr, circom_chain(fr, CLI_PY_VM_CONSTRAINTS)[1].values),
+                    "the Python and native VMs differ at 2^10")
+            log("  2^10 chain: Python VM == native VM == circom_chain's witness")
+
+            # wtns check: the good witness, then one flipped value
+            _, lines = step("wtns check", ["wtns", "check", files["chain.r1cs"],
+                                           P("witness.wtns")])
+            check("WITNESS IS CORRECT" in lines, f"wtns check said {lines}")
+            check(launches["wtns check"] == dict(launches["wtns check"], **WTNS_CHECK_PREDICTED),
+                  f"wtns check launched {launches['wtns check']}, predicted "
+                  f"{WTNS_CHECK_PREDICTED}")
+            bad = bytearray(want)
+            bad[-32 * (nc + 2 - 7)] ^= 1          # wire 7: constraint 5's output
+            with open(P("bad.wtns"), "wb") as f:
+                f.write(bad)
+            _, lines = step("wtns check (flipped)", ["wtns", "check", files["chain.r1cs"],
+                                                     P("bad.wtns")], expect_rc=1)
+            check(lines == ["Constraint 5 does not match"], f"flipped wtns check said {lines}")
+            steps["wtns check in-process"], ok = wall_ms(
+                lambda: tools.wtns_check(r1cs, wit, device=dev))
+            check(ok, "tools.wtns_check rejects the chain's witness")
+
+            # Groth16: setup (phase 10's key), prove, fullprove, verify, calldata
+            step("groth16 setup", ["groth16", "setup", files["chain.r1cs"], P("pot19.ptau"),
+                                   P("g16.zkey")])
+            with open(P("g16.zkey"), "rb") as f:
+                check(f.read() == zbytes, "CLI groth16 setup differs from phase 10's key")
+            step("groth16 prove", ["groth16", "prove", P("g16.zkey"), P("witness.wtns"),
+                                   P("proof.json"), P("public.json")])
+            step("groth16 fullprove", ["groth16", "fullprove", files["input.json"],
+                                       files["chain.wasm"], P("g16.zkey"), P("proof2.json"),
+                                       P("public2.json")])
+            step("zkey export verificationkey", ["zkey", "export", "verificationkey",
+                                                 P("g16.zkey"), P("vk.json")])
+            verify_both(step, "groth16", P, "vk.json", ("proof.json", "proof2.json"))
+            out, _ = step("zkey export soliditycalldata", ["zkey", "export",
+                                                           "soliditycalldata",
+                                                           P("public.json"), P("proof.json")])
+            check(out.startswith("[") and out.count("0x") == 9,
+                  f"soliditycalldata printed {out[:200]!r}")
+
+            # PLONK at 2^18 from the same .ptau
+            step("plonk setup", ["plonk", "setup", files["chain.r1cs"], P("pot19.ptau"),
+                                 P("plonk.zkey")])
+            step("plonk fullprove", ["plonk", "fullprove", files["input.json"],
+                                     files["chain.wasm"], P("plonk.zkey"),
+                                     P("plonk_proof.json"), P("plonk_public.json")])
+            step("zkey export verificationkey (plonk)", ["zkey", "export", "verificationkey",
+                                                         P("plonk.zkey"), P("plonk_vk.json")])
+            verify_both(step, "plonk", P, "plonk_vk.json", ("plonk_proof.json",))
+
+            # FFLONK at 2^16 (9n + 18 points: the largest domain the .ptau holds)
+            ff = wasm_chain.write_chain(P("ff"), fr.p, FFLONK_PTAU_CONSTRAINTS)
+            step("fflonk setup", ["fflonk", "setup", ff["chain.r1cs"], P("pot19.ptau"),
+                                  P("fflonk.zkey")])
+            step("fflonk fullprove", ["fflonk", "fullprove", ff["input.json"],
+                                      ff["chain.wasm"], P("fflonk.zkey"),
+                                      P("fflonk_proof.json"), P("fflonk_public.json")])
+            step("zkey export verificationkey (fflonk)", ["zkey", "export", "verificationkey",
+                                                          P("fflonk.zkey"), P("fflonk_vk.json")])
+            verify_both(step, "fflonk", P, "fflonk_vk.json", ("fflonk_proof.json",))
+    finally:
+        logger.removeHandler(handler)
+    for name in ("groth16 setup", "groth16 prove", "plonk setup", "fflonk setup"):
+        log(f"  {name}: CLI {steps[name]:.0f} ms against {inprocess_ms[name]:.0f} ms in-process "
+            "(earlier phase)")
+    log(f"  wtns check: CLI {steps['wtns check']:.0f} ms against "
+        f"{steps['wtns check in-process']:.0f} ms in-process")
+    for kname in ("field_ops", "msm_scan", "digit_mm_norm"):
+        check(sum(c[kname] for c in launches.values()) > 0,
+              f"the CLI steps launched no {kname}")
+
+    # the kernels at every shape the CLI steps gave them
+    t = time.perf_counter()
+    log(f"  CLI shapes: {shapes_json(seen)}; K-field: {len(fseen)} (field, elements) "
+        f"sizes, {sum(fseen.values())} launches")
+    check(sum(fseen.values()) == sum(c["field_ops"] for c in launches.values()),
+          "the recorded K-field launches are not the counted ones")
+    for fname in sorted({f for f, _ in fseen}):
+        field_cases(dev, gen, errs, sorted(n for f, n in fseen if f == fname),
+                    "every size the CLI steps gave it", fname)
+    fq, sz1 = cv.fq, 2 * cv.fq.n8
+    n1, n2 = 1 << 16, 1 << 15
+    x1, y1, _ = pcodec.g1_lem_from_bytes(fq, bytes(ptau.sections[2][:n1 * sz1]), n1)
+    x2, y2, _ = pcodec.g2_lem_from_bytes(fq, bytes(ptau.sections[3][:n2 * 2 * sz1]), n2)
+    put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) else ftorch.to_tensor(a, dev)
+    scans = ceremony_scans(cv, seen["msm_scan"], {"g1": (put(x1), put(y1)),
+                                                  "g2": (put(x2), put(y2))},
+                           gen, rate32, errs, path="cli")
+    check({tuple(e["shape"]) for e in scans} == set(seen["msm_scan"]),
+          f"a K-scan shape of the CLI steps was not compared: {sorted(seen['msm_scan'])}")
+    check(not seen["digit_mm"], "a CLI step launched K-mm")
+    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "cli", errs)
+             for sh, k in sorted(seen["digit_mm_norm"].items())]
+    check({tuple(e["shape"]) for e in norms} == set(seen["digit_mm_norm"]),
+          "a K-mm-norm shape of the CLI steps was not compared")
+    steps["kernels vs plain at the CLI shapes"] = (time.perf_counter() - t) * 1e3
+    total = time.perf_counter() - t_phase
+    log(f"  CLI phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"  CLI phase total {total:.1f} s")
+    return {"steps_ms": steps, "launches": launches, "inprocess_ms": inprocess_ms,
+            "native_vm_constraints_per_s": rate,
+            "predicted": {"wtns check": WTNS_CHECK_PREDICTED},
+            "field_sizes": len(fseen), "total_s": total, "scans": scans, "norms": norms}
+
+
+def verify_both(step, proto, P, vk, proofs):
+    """`<proto> verify` accepts each proof ("OK!") and rejects it with the
+    first public signal plus one (exit 1, "INVALID proof")."""
+    for proof in proofs:
+        public = proof.replace("proof", "public")
+        out, _ = step(f"{proto} verify {proof}", [proto, "verify", P(vk), P(public), P(proof)])
+        check(out.strip() == "OK!", f"{proto} verify printed {out!r}")
+        with open(P(public)) as f:
+            pubs = json.load(f)
+        with open(P("tampered.json"), "w") as f:
+            json.dump([str(int(pubs[0]) + 1)] + pubs[1:], f)
+        out, _ = step(f"{proto} verify {proof} (tampered public)",
+                      [proto, "verify", P(vk), P("tampered.json"), P(proof)], expect_rc=1)
+        check(out.strip() == "INVALID proof", f"{proto} verify (tampered) printed {out!r}")
+
+
 def sass_tensor_core_counts():
     """IGMMA (wgmma) and IMMA (mma.sync) instructions in the SASS of the two
     digit-matmul libraries; fails unless each holds some."""
@@ -2135,15 +2438,24 @@ def main():
     torch.cuda.empty_cache()
     log(f"[Groth16 phase 2 at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
     mpc = phase_zkey_mpc(dev, gen, errs, rate32, ptau, g16_zkey, chain_r1cs, chain_wit)
-    del ptau, g16_zkey, chain_r1cs, chain_wit
     ml = mpc["launches"]
+    torch.cuda.empty_cache()
+    log(f"[the CLI and witness calculation at domain 2^18] "
+        f"({time.perf_counter() - t0:.1f} s so far)")
+    inprocess = {"groth16 setup": setup["steps_ms"]["groth16_setup_from_ptau"],
+                 "groth16 prove": setup["steps_ms"]["groth16_prove"],
+                 "plonk setup": setup["steps_ms"]["plonk_setup_from_ptau"],
+                 "fflonk setup": ff["steps_ms"]["setup_from_ptau_2^16"]}
+    clip = phase_cli(dev, gen, errs, rate32, ptau, g16_zkey, chain_r1cs, chain_wit, inprocess)
+    del ptau, g16_zkey, chain_r1cs, chain_wit
+    cli_l = clip["launches"]
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
     # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
     # FFLONK prove's, `launches_fflonk_setup` its setups', `launches_ceremony`
     # phase 13's (contribute, prepare_phase2, verify), `launches_phase2` phase
     # 14's (contribute, verify_from_init, export and import of the MPC
-    # params).  `ms`, `plain_ms` and
+    # params), `launches_cli` phase 15's CLI steps.  `ms`, `plain_ms` and
     # `bound_ms` belong to `shape`, the shape that path gave the kernel most
     # often.  `shapes` lists every shape the paths gave the kernel (K-field
     # has too many), each with its own launches, error, times and bound.
@@ -2158,12 +2470,13 @@ def main():
          dict(entries["field_ops"], shape=[16, 1 << 20]), []),
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
          "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
-         [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]),
+         [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]
+         + clip["scans"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
-         [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"]),
+         [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"] + clip["norms"]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -2179,6 +2492,7 @@ def main():
                                         if step != "prove"},
                  launches_ceremony={step: c[kname] for step, c in cl.items()},
                  launches_phase2={step: c[kname] for step, c in ml.items()},
+                 launches_cli={step: c[kname] for step, c in cli_l.items()},
                  shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
         kernels.append(k)
@@ -2187,12 +2501,14 @@ def main():
     kernels[0]["launches_by_op_fflonk"] = fl["prove"]["field_by_op"]
     kernels[0]["launches_by_op_ceremony"] = {step: c["field_by_op"] for step, c in cl.items()}
     kernels[0]["launches_by_op_phase2"] = {step: c["field_by_op"] for step, c in ml.items()}
+    kernels[0]["launches_by_op_cli"] = {step: c["field_by_op"] for step, c in cli_l.items()}
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
     log(f"setup phase: {json.dumps(setup)}")
     log(f"fflonk phase: {json.dumps({k: v for k, v in ff.items() if k not in ('scans', 'norms')})}")
     log(f"ceremony phase: {json.dumps({k: v for k, v in cer.items() if k not in ('scans', 'norms')})}")
     log(f"phase 2: {json.dumps({k: v for k, v in mpc.items() if k not in ('scans', 'norms')})}")
+    log(f"CLI phase: {json.dumps({k: v for k, v in clip.items() if k not in ('scans', 'norms')})}")
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

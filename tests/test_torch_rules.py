@@ -42,6 +42,9 @@ PORT_MODULES = [
     "snarkjs_tpu_torch.ceremony.keypair", "snarkjs_tpu_torch.utils.chacha",
     "snarkjs_tpu_torch.utils.spool", "snarkjs_tpu_torch.ceremony.zkey_mpc",
     "snarkjs_tpu_torch.ceremony.bellman", "snarkjs_tpu_torch.export.solidity",
+    "snarkjs_tpu_torch.wasm.interp", "snarkjs_tpu_torch.wasm.native",
+    "snarkjs_tpu_torch.wasm.witness_calculator", "snarkjs_tpu_torch.tools",
+    "snarkjs_tpu_torch.api", "snarkjs_tpu_torch.cli", "snarkjs_tpu_torch.__main__",
 ]
 
 
@@ -238,6 +241,20 @@ def test_phase2_entry_points_raise_without_cuda(monkeypatch):
             call()
 
 
+def test_witness_check_defaults_to_the_card(monkeypatch):
+    """`tools.wtns_check` (and the API's `wtns.check` over it) default to the
+    card and raise without one."""
+    from snarkjs_tpu_torch import api, tools
+    from snarkjs_tpu_torch.formats import wtns as twtns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    r1cs, _ = _setup_inputs()
+    wit = twtns.Witness(n8=32, q=r1cs.prime, n=2, values=np.zeros((16, 2), np.uint32))
+    for call in (lambda: tools.wtns_check(r1cs, wit), lambda: api.wtns.check(r1cs, wit)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def test_failed_blake2b_build_raises(monkeypatch, tmp_path):
     """A failed g++ build raises; there is no pure-Python BLAKE2b to fall
     back to."""
@@ -292,6 +309,29 @@ def test_no_module_reads_the_environment_for_a_route():
     assert "NVCC" in hits[0][1]
     for fn in os.listdir(os.path.join(pkg, "csrc")):
         assert "getenv" not in open(os.path.join(pkg, "csrc", fn)).read(), fn
+
+
+def test_no_module_reads_the_native_wasm_switch():
+    """The JAX package's SNARKJS_NO_NATIVE_WASM picks its WASM VM; the port's
+    caller picks it by argument (`vm=`), and no module of the port names the
+    switch."""
+    pkg = os.path.join(ROOT, "snarkjs_tpu_torch")
+    for base, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith((".py", ".cpp", ".cu", ".cuh")):
+                with open(os.path.join(base, fn)) as f:
+                    assert "SNARKJS_NO_NATIVE_WASM" not in f.read(), fn
+
+
+def test_importing_main_runs_nothing():
+    """`import snarkjs_tpu_torch.__main__` neither prints the usage nor
+    exits; `python -m snarkjs_tpu_torch` runs the CLI."""
+    out = subprocess.run(
+        [sys.executable, "-c", "import snarkjs_tpu_torch.__main__ as m; print('IMPORTED', m.main)"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("IMPORTED <function main") and "usage" not in out.stdout
 
 
 def test_plain_versions_only_inside_context():
