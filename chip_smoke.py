@@ -92,7 +92,9 @@ Phases (any failure exits non-zero before the last line):
      before contribute, prepare_phase2 and verify and read just after, beside
      the counts predicted from the code; one G1 and one G2 stage of the
      batched group iNTT timed and profiled alone; K-field, K-scan and
-     K-mm-norm against their plain versions at the shapes the phase gave them;
+     K-mm-norm against their plain versions at the shapes the phase gave them
+     (a shape held in an earlier phase is not held again, here and in the
+     phases after);
  14. Groth16 phase 2 at domain 2^18 on phase 10's key (the chain with
      circom's coefficients) and .ptau: zkey contribute and beacon, five
      points of sections 8 and 9 and the header's delta against host bigints,
@@ -126,7 +128,26 @@ Phases (any failure exits non-zero before the last line):
      same call in the earlier phases; the shapes every CLI step gave K-field,
      K-scan and K-mm-norm recorded, and each kernel held against its plain
      version at every one of them;
- 16. K-scan's registers, local memory and spills, the kernels line, then the
+ 16. the multi-device path on the one card (`parallel.distributed`,
+     `parallel.sharded`): the keys, witnesses and proofs of phases 5, 7 and
+     12 and phase 10's .ptau are written to a temporary directory; one rank
+     over NCCL proves the 2^20 Groth16 key over a mesh of one (byte-equal to
+     phase 5's proof; its warm time beside phase 5's); then four Gloo ranks,
+     all on cuda:0, in one spawn: `ntt_sharded` forward and inverse at 2^24
+     (both axes through K-mm-norm) and 2^20 (butterflies), limb-equal to the
+     unsharded `ntt_mm` NTTs; the Groth16 (2^20), PLONK and FFLONK (2^18)
+     proves over the mesh byte-equal to phases 5, 7 and 12; `contribute`
+     over the mesh (sections 2-6 equal to phase 10's) and `prepare_phase2`
+     of the power-16 truncation of phase 10's file (PREPARE_POWER, cut from
+     19 for time; sections 13-15 and 12's blocks up to 2^16 are phase 10's
+     prefixes, 12's last block follows from phase 10's by the reference's
+     zero-point identity); `msm_sharded` and the legacy Pippenger at 2^12
+     equal to `GpuMSM.run`.  Each step's launches counted on every rank
+     (`launches_mesh`), every shape the ranks gave K-scan, K-mm-norm and
+     K-field held against the plain version (but those held in the earlier
+     phases); the CLI's `--devices 2` refused before any rank starts and
+     `--devices 1` proving;
+ 17. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
@@ -140,11 +161,13 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -156,6 +179,7 @@ import torch
 from snarkjs_tpu_torch import _build, cli, tools
 from snarkjs_tpu_torch.ceremony import bellman, keypair, ptau_ops, zkey_mpc
 from snarkjs_tpu_torch.curves import host_curve as hc
+from snarkjs_tpu_torch.curves import jac
 from snarkjs_tpu_torch.curves import msm as msm_mod
 from snarkjs_tpu_torch.curves import msm_gpu
 from snarkjs_tpu_torch.export import solidity
@@ -183,7 +207,8 @@ INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 IMAD_PER_CLK_SM = 64        # 32-bit integer multiply-add results/clk/SM, cc 9.0
 N_CONSTRAINTS = 600_000
 PLONK_CONSTRAINTS = 200_000  # + 1 public-input row: domain 2^18
-PAIRED_PROVES = 7            # warm proves per NTT route in a paired timing
+PAIRED_PROVES = 4            # warm proves per NTT route in a paired timing (7 before
+                             # phase 16: the script stays inside its time limit)
 
 
 def log(msg):
@@ -193,6 +218,23 @@ def log(msg):
 def check(cond, what):
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+STASH = {"dir": None}   # files the earlier phases hand to phase 16's ranks
+
+
+def stash_path(name):
+    return os.path.join(STASH["dir"], name)
+
+
+def stash_bytes(name, data):
+    with open(stash_path(name), "wb") as f:
+        f.write(data)
+
+
+def stash_json(name, obj):
+    with open(stash_path(name), "w") as f:
+        json.dump(obj, f)
 
 
 def max_abs_err(a, b):
@@ -688,6 +730,12 @@ def phase_full_prove(dev, tables):
     check(json.dumps(host_proof) == json.dumps(proof),
           "proof differs from the one assembled from the closed forms")
     log("  proof == proof assembled on host from the closed forms")
+    t = time.perf_counter()
+    stash_bytes("groth16.zkey", groth16_setup.write_groth16_zkey(zkey))
+    stash_bytes("groth16.wtns", write_wtns(fr, wit.values))
+    stash_json("groth16.json", {"r": r, "s": s, "proof": proof, "publics": publics,
+                                "warm_ms": prove_ms})
+    log(f"  key, witness and proof written for phase 16 in {time.perf_counter() - t:.1f} s")
     return zkey, wit, prove_ms, launches, shapes
 
 
@@ -787,6 +835,11 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
     return parts, paired
 
 
+# what has been held against the plain version so far in the run: shapes of
+# K-scan, K-mm and K-mm-norm, (field, elements) of K-field
+HELD = {"msm_scan": set(), "digit_mm": set(), "digit_mm_norm": set(), "field_ops": set()}
+
+
 def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None):
     """K-scan against its plain version on the input `run` builds for these
     points and scalars (window digits of cw bits), which must have a shape
@@ -801,6 +854,7 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None)
     e = max_abs_err(got, want)
     check(e == 0, f"K-scan {group} {shape} differs from plain ({e})")
     errs["msm_scan"] = max(errs["msm_scan"], e)
+    HELD["msm_scan"].add(shape)
     nw, C, nin, RL = shape
     nbytes = xyT.numel() * 4 + got.numel() * 4
     wide = nw * C * RL * madd_products(m.ext) * mont_mul_imads(cv.fq.nl // 2)
@@ -832,6 +886,7 @@ def mm_case(dev, gen, kernel, shape, launches, path, errs):
     e = max(max_abs_err(fn(), want), max_abs_err(jax_layout(), want))
     check(e == 0, f"{kernel} {shape} differs from plain ({e})")
     errs[kernel] = max(errs[kernel], e)
+    HELD[kernel].add(tuple(shape))
     ms = cuda_ms(fn, 5)
     nd = W8.shape[0]
     bms, by = bound(W8.numel() + D8.numel() + want.numel() * 4,
@@ -934,6 +989,8 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
             max_abs_err(ntt_mm.digit_mm_norm(fp, W8, D8), wantn))
     check(e == 0, f"K-mm-norm differs from plain or from _int_mm + normalize ({e})")
     errs["digit_mm_norm"] = max(errs["digit_mm_norm"], e)
+    HELD["digit_mm"].add(BIG)
+    HELD["digit_mm_norm"].add(BIG)
     ms_n = cuda_ms(lambda: ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True), 5)
     unfused_ms = cuda_ms(
         lambda: ntt_mm._normalize_cols(fp, ntt_mm.digit_mm(W8, DT, y_major=True)), 5)
@@ -1003,6 +1060,7 @@ def plonk_synthetic_key(cv, tables, r1cs, dev):
     zk = read_plonk_zkey(zbytes)
     check(zk.domain_size == domain and zk.ptau[2].shape[0] == M,
           "synthetic PLONK key has an unexpected domain or SRS length")
+    stash_bytes("plonk.zkey", zbytes)
     return zk, len(zbytes)
 
 
@@ -1109,6 +1167,8 @@ def phase_plonk_prove(dev, tables):
           and launches["digit_mm_norm"] == 20 and launches["digit_mm"] == 0,
           "PLONK path: expected 9 K-scan, 20 K-mm-norm and no K-mm launches")
     check_plonk_proof(cv, zk, proof, publics, out, dev)
+    stash_bytes("plonk.wtns", write_wtns(fr, wit.values))
+    stash_json("plonk.json", {"b": b, "proof": proof, "publics": publics, "warm_ms": prove_ms})
     return zk, wit, b, prove_ms, launches, shapes, out["A"]
 
 
@@ -1494,6 +1554,7 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
         lambda: groth16_setup._points_from_scalars(cv, taus, False, dev),
         setup_steps["SRS points"])
     del taus
+    stash_bytes("fflonk.zkey", zbytes)
     t = time.perf_counter()
     zk = read_fflonk_zkey(zbytes)
     steps["read_fflonk_zkey"] = (time.perf_counter() - t) * 1e3
@@ -1531,6 +1592,8 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
         launches["prove"] = counts()
     peak = torch.cuda.max_memory_allocated()
     pl = launches["prove"]
+    stash_bytes("fflonk.wtns", write_wtns(fr, wit.values))
+    stash_json("fflonk.json", {"b": b, "proof": proof, "publics": publics, "warm_ms": prove_ms})
     log(f"  first prove (uploads the key) {steps['first_prove']:.0f} ms; counted warm prove "
         f"{prove_ms:.1f} ms, peak device memory {peak / 2**30:.2f} GiB; launches {pl}")
     log(f"  prove shapes: {shapes_json(shapes['prove'])}")
@@ -1600,6 +1663,7 @@ RESPONSE_SEED = [0xC0FF_EE01, 0xC0FF_EE02, 0xC0FF_EE03, 0xC0FF_EE04, 5, 6, 7, 8]
 BEACON_HASH = bytes.fromhex("5a" * 32)
 VERIFY_SEED = 1913
 CEREMONY_SMALL_POWER = 12   # convert and export_json: the JSON stays small
+PREPARE_POWER = 16          # prepare_phase2 over the mesh in phase 16 (cut from 19 for time)
 STAGE_PROFILED = 10         # the group iNTT stage timed alone and profiled
 
 
@@ -1621,9 +1685,13 @@ def ceremony_predicted(power):
 
 def field_cases(dev, gen, errs, sizes, what, field="bn254_fq"):
     """K-field add / sub / mont_mul / neg on `field` against the plain
-    versions at the given element counts (shapes a path gave the kernel)."""
+    versions at the given element counts (shapes a path gave the kernel) but
+    those held earlier in the run."""
     ctx = ftorch.get_ctx(field)
+    again = [n for n in sizes if (field, n) in HELD["field_ops"]]
+    sizes = [n for n in sizes if (field, n) not in HELD["field_ops"]]
     for n in sizes:
+        HELD["field_ops"].add((field, n))
         a, b = rand_field(ctx.fp, n, dev, gen), rand_field(ctx.fp, n, dev, gen).flip(1).contiguous()
         for op, fn in (("add", ftorch.add), ("sub", ftorch.sub), ("mont_mul", ftorch.mont_mul),
                        ("neg", lambda ctx, a, b: ftorch.neg(ctx, a))):
@@ -1633,16 +1701,34 @@ def field_cases(dev, gen, errs, sizes, what, field="bn254_fq"):
             e = max_abs_err(got, want)
             check(e == 0, f"K-field {op} {field} at {n} differs from plain ({e})")
             errs["field_ops"] = max(errs["field_ops"], e)
-    log(f"  K-field {field}: add sub mont_mul neg == plain at {list(sizes)} ({what})")
+    log(f"  K-field {field}: add sub mont_mul neg == plain at {list(sizes)} ({what}); "
+        f"{len(again)} sizes held earlier in the run")
+
+
+def held_before(kernel, seen, path):
+    """The shapes of `seen` that no earlier phase held against the plain
+    version (logged: those that one did)."""
+    again = sorted(set(seen) & HELD[kernel])
+    if again:
+        log(f"  {kernel} {again} ({path}): held against plain earlier in this run")
+    return sorted(set(seen) - HELD[kernel])
+
+
+def norm_cases(dev, gen, seen, path, errs):
+    """K-mm-norm against its plain version at every shape of `seen` ({shape:
+    launches}) not held earlier in the run."""
+    return [mm_case(dev, gen, "digit_mm_norm", sh, seen[sh], path, errs)
+            for sh in held_before("digit_mm_norm", seen, path)]
 
 
 def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
-    """K-scan against its plain version at every shape a verify gave it:
-    the input is rebuilt from the .ptau's points (tiled) and random scalars
-    at the point count C * RL, which gives the recorded shape."""
+    """K-scan against its plain version at every shape a path gave it but
+    those held earlier in the run: the input is rebuilt from the .ptau's
+    points (tiled) and random scalars at the point count C * RL, which gives
+    the recorded shape."""
     out = []
     dev = pts["g1"][0].device
-    for shape in sorted(seen):
+    for shape in held_before("msm_scan", seen, path):
         nw, C, nin, RL = shape
         group = "g1" if nin == cv.fq.nl + 1 else "g2"
         cw = 16 if nw <= cv.fq.nl else 8
@@ -1697,7 +1783,7 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
     contribute, prepare_phase2 and verify and read just after; one G1 and one
     G2 stage of the group iNTT timed and profiled alone; K-field, K-scan and
     K-mm-norm against their plain versions at the shapes the phase gave
-    them."""
+    them (but those held earlier in the run)."""
     cv = hc.BN254
     power = SETUP_POWER
     sz1 = 2 * cv.fq.n8
@@ -1816,8 +1902,7 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
                            gen, rate32, errs)
     steps["kscan_vs_plain"] = (time.perf_counter() - t) * 1e3
     check(not v_shapes["digit_mm"], "verify launched K-mm")
-    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "ceremony verify", errs)
-             for sh, k in sorted(v_shapes["digit_mm_norm"].items())]
+    norms = norm_cases(dev, gen, v_shapes["digit_mm_norm"], "ceremony verify", errs)
     total = time.perf_counter() - t_phase
     log(f"  ceremony phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
     log(f"  ceremony peak device memory {peak:.2f} GiB; phase total {total:.1f} s")
@@ -2067,8 +2152,7 @@ def phase_zkey_mpc(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit):
                            {"g1": (ftorch.to_tensor(x1, dev), ftorch.to_tensor(y1, dev))},
                            gen, rate32, errs, path="phase 2 verify")
     check(not vshapes["digit_mm"], "verify_from_init launched K-mm")
-    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "phase 2 verify", errs)
-             for sh, k in sorted(vshapes["digit_mm_norm"].items())]
+    norms = norm_cases(dev, gen, vshapes["digit_mm_norm"], "phase 2 verify", errs)
     total = time.perf_counter() - t_phase
     log(f"  phase 2 steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
     log(f"  phase 2 peak device memory {peak:.2f} GiB; phase total {total:.1f} s")
@@ -2319,12 +2403,11 @@ def phase_cli(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit, inprocess_ms):
     scans = ceremony_scans(cv, seen["msm_scan"], {"g1": (put(x1), put(y1)),
                                                   "g2": (put(x2), put(y2))},
                            gen, rate32, errs, path="cli")
-    check({tuple(e["shape"]) for e in scans} == set(seen["msm_scan"]),
+    check(set(seen["msm_scan"]) <= HELD["msm_scan"],
           f"a K-scan shape of the CLI steps was not compared: {sorted(seen['msm_scan'])}")
     check(not seen["digit_mm"], "a CLI step launched K-mm")
-    norms = [mm_case(dev, gen, "digit_mm_norm", sh, k, "cli", errs)
-             for sh, k in sorted(seen["digit_mm_norm"].items())]
-    check({tuple(e["shape"]) for e in norms} == set(seen["digit_mm_norm"]),
+    norms = norm_cases(dev, gen, seen["digit_mm_norm"], "cli", errs)
+    check(set(seen["digit_mm_norm"]) <= HELD["digit_mm_norm"],
           "a K-mm-norm shape of the CLI steps was not compared")
     steps["kernels vs plain at the CLI shapes"] = (time.perf_counter() - t) * 1e3
     total = time.perf_counter() - t_phase
@@ -2334,6 +2417,372 @@ def phase_cli(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit, inprocess_ms):
             "native_vm_constraints_per_s": rate,
             "predicted": {"wtns check": WTNS_CHECK_PREDICTED},
             "field_sizes": len(fseen), "total_s": total, "scans": scans, "norms": norms}
+
+
+# ------------------------------------------------------------ phase 16: mesh
+
+MESH_RANKS = 4                # Gloo ranks that share the one card
+MESH_NTT_LOGS = (24, 20)      # sharded NTT sizes (2^24: both axes through K-mm-norm)
+MESH_MSM_POINTS = 1 << 12     # msm_sharded and the legacy Pippenger
+MESH_WARM = 1                 # warm proves the NCCL rank times after the counted one
+MESH = {"mesh": None}         # this rank's mesh (mesh_step waits for every rank)
+MESH_JOIN_S = 900.0
+
+
+def mesh_rec():
+    return {"steps": {}, "shapes": {k: collections.Counter()
+                                    for k in ("digit_mm", "digit_mm_norm", "msm_scan")},
+            "field_sizes": collections.Counter(), "equal": {}, "digest": {}, "ms": {}}
+
+
+def mesh_step(rec, name, fn):
+    """fn() on this rank, timed on the host clock between two card
+    synchronisations once every rank has reached it, with its launches
+    counted (set to 0 just before, read just after) and the shapes it gave
+    K-scan, K-mm(-norm) and K-field."""
+    from snarkjs_tpu_torch.parallel import distributed as pdist
+
+    torch.cuda.synchronize()
+    pdist.barrier(MESH["mesh"])
+    with recorded_shapes() as shapes, field_shapes() as fshapes:
+        reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        c = counts()
+    rec["steps"][name] = {"ms": ms, "launches": {k: v for k, v in c.items()
+                                                 if k != "field_by_op"}}
+    for k, v in shapes.items():
+        rec["shapes"][k].update(v)
+    rec["field_sizes"].update(fshapes)
+    return out
+
+
+def limb_digest(t):
+    """A checksum of a limb tensor, summed on the card limb by limb."""
+    w = torch.arange(t.shape[-1], device=t.device, dtype=torch.int64) % 1009 + 1
+    return sum(int((t[i].to(torch.int64) * w).sum()) * (i + 1) for i in range(t.shape[0]))
+
+
+def mesh_prove(rec, mesh, dev, what, mod, read_key, extra, first=True, warm=0):
+    """A prove over the mesh from the stashed key, witness and blinders: the
+    first one (it uploads this rank's block of the key's points) unless
+    `first` is False (the counted one then uploads), one counted, `warm`
+    timed; the counted proof against the stored one."""
+    from snarkjs_tpu_torch.formats.wtns import read_wtns
+
+    ref = json.load(open(stash_path(f"{what}.json")))
+    t = time.perf_counter()
+    zk = read_key(stash_path(f"{what}.zkey"))
+    wit = read_wtns(stash_path(f"{what}.wtns"))
+    rec["ms"][f"{what} read key + witness"] = (time.perf_counter() - t) * 1e3
+    kw = extra(ref)
+    if first:
+        rec["ms"][f"{what} first prove"] = wall_ms(
+            lambda: mod.prove(zk, wit, device=dev, mesh=mesh, **kw))[0]
+    proof, publics = mesh_step(rec, what, lambda: mod.prove(zk, wit, device=dev, mesh=mesh,
+                                                           **kw))
+    rec["ms"][f"{what} warm"] = [wall_ms(lambda: mod.prove(zk, wit, device=dev, mesh=mesh,
+                                                           **kw))[0]
+                                 for _ in range(warm)]
+    rec["equal"][what] = json.dumps([proof, publics]) == json.dumps([ref["proof"],
+                                                                      ref["publics"]])
+    rec["ms"][f"{what} single-card warm (earlier phase)"] = ref["warm_ms"]
+    return zk
+
+
+def gloo_cuda_native(mesh, dev):
+    """Whether this torch's Gloo takes CUDA tensors itself, as the port's
+    collectives rely on (`distributed._comm_device` hands Gloo the tensor
+    where it is)."""
+    import torch.distributed as dist
+
+    from snarkjs_tpu_torch.parallel import distributed as pdist
+
+    g = mesh.get_group(pdist.AXIS)
+    n, r = pdist.mesh_size(mesh), pdist.mesh_rank(mesh)
+    out = {}
+    t = torch.arange(2 * n, device=dev, dtype=torch.int32) + 100 * r
+    try:
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=g)
+        out["all_gather"] = [int(p[0]) for p in parts] == [100 * j for j in range(n)]
+    except Exception as e:        # noqa: BLE001 (recorded, not hidden)
+        out["all_gather"] = repr(e)[:300]
+    try:
+        o = torch.empty_like(t)
+        dist.all_to_all_single(o, t, group=g)
+        out["all_to_all_single"] = o.tolist() == [100 * j + 2 * r + i for j in range(n)
+                                                  for i in range(2)]
+    except Exception as e:        # noqa: BLE001
+        out["all_to_all_single"] = repr(e)[:300]
+    return out
+
+
+def mesh_nccl_rank(rank, stash_dir):
+    """Phase 16, one rank over NCCL: the 2^20 Groth16 prove over a mesh of
+    one, against phase 5's proof and its single-card time."""
+    from snarkjs_tpu_torch.parallel import distributed as pdist
+
+    STASH["dir"] = stash_dir
+    MESH["mesh"] = pdist.prover_mesh()
+    mesh = MESH["mesh"]
+    rec = mesh_rec()
+    rec["mesh"] = type(mesh).__name__
+    mesh_prove(rec, mesh, pdist.device(), "groth16", groth16, read_groth16_zkey,
+               lambda ref: {"r": ref["r"], "s": ref["s"]}, warm=MESH_WARM)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return rec
+
+
+def lagrange_block_want(cv, lem_lagrange, lem_tau, p, dev):
+    """Block p + 1 of a prepared power-p section 12 from the power-P file's
+    (P > p): the power-p file puts a zero point in place of tau^(N - 1) G1
+    (N = 2^(p + 1)), so its block is L_j - (w^j / N) tau^(N - 1) G1, with L
+    the power-P file's block (the Lagrange basis of all N points).  On the
+    card: one batched scalar multiplication of N lanes, one add."""
+    fq, fr = cv.fq, cv.fr
+    f = ptau_ops._f(cv, False, dev)
+    N = 1 << (p + 1)
+    k = N.bit_length() - 1
+    L = ptau_ops._lem_points(cv, lem_lagrange, N, False, dev)
+    tx, ty, tinf = ptau_ops._lem_points(cv, bytes(memoryview(lem_tau)[(N - 1) * 64:N * 64]),
+                                        1, False, dev)
+    s = ptau_ops._powers(fr, pow(N, fr.p - 2, fr.p), fr.w[k], N, dev)
+    cx, cy, cinf = jac.scalar_mul_affine(f, tx.expand(-1, N).contiguous(),
+                                         ty.expand(-1, N).contiguous(), tinf.expand(N), s)
+    P = jac.jac_add(f, jac.from_affine(f, *L),
+                    jac.jac_neg(f, jac.from_affine(f, cx, cy, cinf)))
+    return ptau_ops._lem_bytes(cv, False, *jac.to_affine_batch(f, P, f.batch_inv))
+
+
+def prepared_equal(cv, prep, ptau, dev):
+    """Sections 12-15 of `prep` (prepare_phase2 at a power p below phase
+    10's, which phase 13 holds equal to the unsharded prepare_phase2) against
+    phase 10's prepared file: 13-15, and 12's blocks up to 2^p, are its
+    prefixes; 12's last block is `lagrange_block_want`."""
+    sz = 2 * cv.fq.n8
+    p = prep.power
+    head = (2 * (1 << p) - 1) * sz
+    eq = {sid: bytes(prep.sections[sid]) == bytes(ptau.sections[sid][:len(prep.sections[sid])])
+          for sid in (13, 14, 15)}
+    eq[12] = bytes(prep.sections[12][:head]) == bytes(ptau.sections[12][:head])
+    last = bytes(ptau.sections[12][head:head + (2 << p) * sz])
+    eq["12 last block"] = (bytes(prep.sections[12][head:])
+                           == lagrange_block_want(cv, last, ptau.sections[2], p, dev))
+    return eq
+
+
+def mesh_gloo_rank(rank, stash_dir):
+    """Phase 16, one of MESH_RANKS Gloo ranks on the one card: every step of
+    the multi-device path, each counted and its shapes recorded."""
+    from snarkjs_tpu_torch.curves.gops import FqOps
+    from snarkjs_tpu_torch.parallel import distributed as pdist
+    from snarkjs_tpu_torch.parallel import sharded
+
+    STASH["dir"] = stash_dir
+    MESH["mesh"] = pdist.prover_mesh()
+    mesh = MESH["mesh"]
+    dev = pdist.device()
+    rec = mesh_rec()
+    rec["mesh"] = type(mesh).__name__
+    rec["gloo_cuda_native"] = gloo_cuda_native(mesh, dev)
+    cv = hc.BN254
+
+    # the four-step NTT, against the unsharded one on rank 0
+    ctx = ftorch.get_ctx("bn254_fr")
+    for logn in MESH_NTT_LOGS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(1600 + logn)
+        x = rand_field(ctx.fp, 1 << logn, dev, g)
+        y = mesh_step(rec, f"ntt_sharded 2^{logn}", lambda: sharded.ntt_sharded(mesh, ctx, x))
+        z = mesh_step(rec, f"intt_sharded 2^{logn}",
+                      lambda: sharded.ntt_sharded(mesh, ctx, y, inverse=True))
+        rec["digest"][f"ntt 2^{logn}"] = (limb_digest(y), limb_digest(z))
+        if rank == 0:
+            rec["ms"][f"ntt_mm.ntt 2^{logn} (unsharded, rank 0)"], want = wall_ms(
+                lambda: ntt_mm.ntt(ctx, x))
+            ok = torch.equal(y, want)
+            del want
+            rec["ms"][f"ntt_mm.intt 2^{logn} (unsharded, rank 0)"], want = wall_ms(
+                lambda: ntt_mm.intt(ctx, y))
+            rec["equal"][f"ntt 2^{logn}"] = ok and torch.equal(z, want) and torch.equal(z, x)
+            del want
+        del x, y, z
+        torch.cuda.empty_cache()
+
+    # the three provers from the stashed keys, with their blinders
+    mesh_prove(rec, mesh, dev, "groth16", groth16, read_groth16_zkey,
+               lambda ref: {"r": ref["r"], "s": ref["s"]}, first=False)
+    torch.cuda.empty_cache()
+    mesh_prove(rec, mesh, dev, "plonk", plonk, read_plonk_zkey, lambda ref: {"b": ref["b"]},
+               first=False)
+    torch.cuda.empty_cache()
+    mesh_prove(rec, mesh, dev, "fflonk", fflonk, read_fflonk_zkey, lambda ref: {"b": ref["b"]},
+               first=False)
+    torch.cuda.empty_cache()
+
+    # the ceremony: contribute at power 19, prepare_phase2 at PREPARE_POWER
+    t = time.perf_counter()
+    ptau = ptau_fmt.read_ptau(stash_path("pot19.ptau"))
+    acc = ptau_ops.new_accumulator(cv, SETUP_POWER)
+    rec["ms"]["read .ptau + new_accumulator"] = (time.perf_counter() - t) * 1e3
+    c1, _ = mesh_step(rec, "contribute", lambda: ptau_ops.contribute(
+        acc, name="chip_smoke", rng=ChaCha(CEREMONY_SEED), device=dev, mesh=mesh))
+    rec["equal"]["contribute"] = all(bytes(c1.sections[sid]) == bytes(ptau.sections[sid])
+                                     for sid in range(2, 7))
+    del c1, acc
+    p16 = ptau_ops.truncate(ptau, PREPARE_POWER)
+    prep = mesh_step(rec, f"prepare_phase2 power {PREPARE_POWER}",
+                     lambda: ptau_ops.prepare_phase2(p16, device=dev, mesh=mesh))
+    rec["digest"]["prepare_phase2"] = hashlib.sha256(
+        b"".join(bytes(prep.sections[sid]) for sid in (12, 13, 14, 15))).hexdigest()
+    if rank == 0:          # the others by the digest
+        rec["equal"][f"prepare_phase2 power {PREPARE_POWER}"] = prepared_equal(cv, prep, ptau,
+                                                                              dev)
+    del prep, p16
+
+    # msm_sharded and the legacy Pippenger against GpuMSM.run
+    n = MESH_MSM_POINTS
+    x, y, inf = ptau_ops._lem_points(cv, bytes(memoryview(ptau.sections[2])[:n * 2 * cv.fq.n8]),
+                                     n, False, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1612)
+    scal = rand_field(cv.fr, n, dev, g)
+    fq = cv.fq
+    mctx = msm_mod.MSMContext(ftorch.get_ctx(fq.name), fq, 1)
+    want = msm_mod.host_jac_to_affine(fq, mctx.run(x, y, inf, scal), 1)
+    ws = mesh_step(rec, f"msm_sharded 2^{n.bit_length() - 1}", lambda: sharded.msm_sharded(
+        mesh, FqOps(ftorch.get_ctx(fq.name), dev), x, y, inf, scal, c=8, nbits=256, R=64))
+    legacy = mesh_step(rec, f"legacy MSMContext.run 2^{n.bit_length() - 1}",
+                       lambda: mctx.run(x, y, inf, scal, legacy=True))
+    rec["equal"]["msm_sharded"] = msm_mod.host_jac_to_affine(fq, mctx._finish(ws, 8, 256),
+                                                             1) == want
+    rec["equal"]["legacy"] = msm_mod.host_jac_to_affine(fq, legacy, 1) == want
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return rec
+
+
+def phase_mesh(dev, gen, errs, rate32, ptau):
+    """Phase 16: the multi-device path on the one card.  One rank over NCCL
+    (the 2^20 Groth16 prove), then MESH_RANKS Gloo ranks all on cuda:0 in
+    one spawn (NTTs, the three provers, contribute, prepare_phase2, the
+    sharded and legacy MSMs); every result against its single-card
+    counterpart; every shape the ranks gave K-scan, K-mm-norm and K-field
+    held against the plain version (those held in earlier phases are not
+    held again); the CLI's --devices."""
+    from snarkjs_tpu_torch.parallel import distributed as pdist
+
+    cv = hc.BN254
+    t_phase = time.perf_counter()
+    out = {"ms": {}}
+    t = time.perf_counter()
+    ptau.save(stash_path("pot19.ptau"))
+    out["ms"]["write .ptau"] = (time.perf_counter() - t) * 1e3
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    (one,) = pdist.spawn(mesh_nccl_rank, 1, args=(STASH["dir"],), devices=["cuda:0"],
+                         backend="nccl", timeout=MESH_JOIN_S)
+    out["ms"]["one NCCL rank (spawn to join)"] = (time.perf_counter() - t) * 1e3
+    check(one["equal"]["groth16"], "the one-rank NCCL Groth16 proof differs from phase 5's")
+    log(f"  one rank over NCCL ({one['mesh']}): Groth16 2^20 == phase 5's proof; first "
+        f"{one['ms']['groth16 first prove']:.0f} ms, counted "
+        f"{one['steps']['groth16']['ms']:.1f} ms, warm {[round(v, 1) for v in one['ms']['groth16 warm']]} "
+        f"ms against {one['ms']['groth16 single-card warm (earlier phase)']:.1f} ms unsharded; "
+        f"launches {one['steps']['groth16']['launches']}")
+
+    t = time.perf_counter()
+    ranks = pdist.spawn(mesh_gloo_rank, MESH_RANKS, args=(STASH["dir"],),
+                        devices=["cuda:0"] * MESH_RANKS, backend="gloo", timeout=MESH_JOIN_S)
+    out["ms"][f"{MESH_RANKS} Gloo ranks (spawn to join)"] = (time.perf_counter() - t) * 1e3
+    r0 = ranks[0]
+    log(f"  {MESH_RANKS} Gloo ranks on cuda:0: mesh {r0['mesh']}; Gloo with CUDA tensors "
+        f"itself: {json.dumps(r0['gloo_cuda_native'])}")
+    for k, v in r0["equal"].items():
+        ok = all(v.values()) if isinstance(v, dict) else v
+        check(ok, f"mesh step {k}: {v}")
+    for k in ("ntt 2^24", "ntt 2^20", "prepare_phase2"):
+        check(len({json.dumps(r["digest"].get(k)) for r in ranks}) == 1,
+              f"the ranks' {k} results differ")
+    for r in ranks[1:]:
+        check(all((all(v.values()) if isinstance(v, dict) else v)
+                  for v in r["equal"].values()), "a rank's result differs")
+    for name in r0["steps"]:
+        log(f"  {name}: " + ", ".join(f"rank {j} {r['steps'][name]['ms']:.0f} ms"
+                                      for j, r in enumerate(ranks))
+            + f"; launches rank 0 {r0['steps'][name]['launches']}")
+    log(f"  times (rank 0): {json.dumps({k: (round(v, 1) if isinstance(v, float) else v) for k, v in r0['ms'].items()})}")
+    log(f"  peak device memory GiB: NCCL rank {one['peak_gib']:.2f}; Gloo ranks "
+        f"{[round(r['peak_gib'], 2) for r in ranks]}")
+    log("  every step == its single-card counterpart on every rank")
+    grp = ranks[0]["steps"]["groth16"]["launches"]
+    check(grp["msm_scan"] == 5, f"a rank of the Groth16 mesh prove launched {grp['msm_scan']} K-scans")
+
+    # the shapes every rank gave the kernels, each held against plain
+    t = time.perf_counter()
+    seen = {k: collections.Counter() for k in ("digit_mm", "digit_mm_norm", "msm_scan")}
+    fseen = collections.Counter()
+    for r in [one] + ranks:
+        for k in seen:
+            seen[k].update(r["shapes"][k])
+        fseen.update(r["field_sizes"])
+    log(f"  mesh shapes: {shapes_json(seen)}; K-field: {len(fseen)} sizes")
+    cw16 = all(sh[0] == cv.fq.nl for r in ranks for sh in r["shapes"]["msm_scan"])
+    check(cw16 and all(r["shapes"]["msm_scan"] for r in ranks),
+          "a Gloo rank ran K-scan at another window than cw = 16 (nw = 16), or not at all")
+    for fname in sorted({f for f, _ in fseen}):
+        field_cases(dev, gen, errs, sorted(n for f, n in fseen if f == fname),
+                    "every size the mesh ranks gave it", fname)
+    fq, sz1 = cv.fq, 2 * cv.fq.n8
+    x1, y1, _ = pcodec.g1_lem_from_bytes(fq, bytes(ptau.sections[2][:(1 << 16) * sz1]), 1 << 16)
+    x2, y2, _ = pcodec.g2_lem_from_bytes(fq, bytes(ptau.sections[3][:(1 << 15) * 2 * sz1]),
+                                         1 << 15)
+    put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) else ftorch.to_tensor(a, dev)
+    scans = ceremony_scans(cv, seen["msm_scan"], {"g1": (put(x1), put(y1)),
+                                                  "g2": (put(x2), put(y2))},
+                           gen, rate32, errs, path="mesh")
+    norms = norm_cases(dev, gen, seen["digit_mm_norm"], "mesh", errs)
+    check(not seen["digit_mm"], "a mesh step launched K-mm")
+    check(all(set(seen[k]) <= HELD[k] for k in ("msm_scan", "digit_mm_norm")),
+          "a shape of the mesh ranks was not held against plain")
+    out["ms"]["kernels vs plain at the mesh shapes"] = (time.perf_counter() - t) * 1e3
+
+    # the CLI: --devices 2 refused before any rank starts; --devices 1 proves
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        args = ["groth16", "prove", os.path.join(FIXTURES, "tiny_bn128.zkey"),
+                os.path.join(FIXTURES, "tiny_bn128.wtns"), os.path.join(d, "proof.json"),
+                os.path.join(d, "public.json")]
+        try:
+            cli._prove("groth16", *args[2:], devices="2")
+            check(False, "--devices 2 on one card did not raise")
+        except ValueError as e:
+            check(str(e) == "--devices 2: only 1 devices visible", f"--devices 2 raised {e!r}")
+        check(not os.path.exists(os.path.join(d, "proof.json")), "--devices 2 wrote a proof")
+        rc = cli.main(args + ["--devices=1"])
+        with open(os.path.join(d, "proof.json")) as f:
+            proof = json.load(f)
+        with open(os.path.join(d, "public.json")) as f:
+            publics = json.load(f)
+        vk = groth16.export_verification_key(read_groth16_zkey(args[2]))
+        check(rc == 0 and groth16.verify(vk, publics, proof),
+              "the CLI's --devices 1 proof does not verify")
+    out["ms"]["CLI --devices"] = (time.perf_counter() - t) * 1e3
+    log("  CLI: groth16 prove --devices 2 raised 'only 1 devices visible' before starting a "
+        "rank; --devices 1 proved and its proof verifies")
+    total = time.perf_counter() - t_phase
+    log(f"  mesh phase ms: {json.dumps({k: round(v, 1) for k, v in out['ms'].items()})}")
+    log(f"  mesh phase total {total:.1f} s")
+    launches = {"nccl 1 rank": {s: [one["steps"][s]["launches"]] for s in one["steps"]},
+                f"gloo {MESH_RANKS} ranks": {s: [r["steps"][s]["launches"] for r in ranks]
+                                             for s in r0["steps"]}}
+    return {"ms": out["ms"], "total_s": total, "launches": launches,
+            "nccl": {k: one[k] for k in ("mesh", "ms", "steps", "peak_gib")},
+            "gloo": [{k: r[k] for k in ("mesh", "ms", "steps", "peak_gib", "equal",
+                                        "gloo_cuda_native")} for r in ranks],
+            "scans": scans, "norms": norms, "field_sizes": len(fseen)}
 
 
 def verify_both(step, proto, P, vk, proofs):
@@ -2368,6 +2817,14 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    STASH["dir"] = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        return run()
+    finally:
+        shutil.rmtree(STASH["dir"], ignore_errors=True)
+
+
+def run():
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2447,8 +2904,12 @@ def main():
                  "plonk setup": setup["steps_ms"]["plonk_setup_from_ptau"],
                  "fflonk setup": ff["steps_ms"]["setup_from_ptau_2^16"]}
     clip = phase_cli(dev, gen, errs, rate32, ptau, g16_zkey, chain_r1cs, chain_wit, inprocess)
-    del ptau, g16_zkey, chain_r1cs, chain_wit
+    del g16_zkey, chain_r1cs, chain_wit
     cli_l = clip["launches"]
+    torch.cuda.empty_cache()
+    log(f"[the multi-device path on one card] ({time.perf_counter() - t0:.1f} s so far)")
+    mesh = phase_mesh(dev, gen, errs, rate32, ptau)
+    del ptau
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
     # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
@@ -2471,12 +2932,13 @@ def main():
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
          "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
          [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]
-         + clip["scans"]),
+         + clip["scans"] + mesh["scans"]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
-         [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"] + clip["norms"]),
+         [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"] + clip["norms"]
+         + mesh["norms"]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -2493,8 +2955,14 @@ def main():
                  launches_ceremony={step: c[kname] for step, c in cl.items()},
                  launches_phase2={step: c[kname] for step, c in ml.items()},
                  launches_cli={step: c[kname] for step, c in cli_l.items()},
+                 launches_mesh={world: {step: [c[kname] for c in per_rank]
+                                        for step, per_rank in steps.items()}
+                                for world, steps in mesh["launches"].items()},
                  shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
+        check(kname == "digit_mm" or any(
+            sum(v) for steps in k["launches_mesh"].values() for v in steps.values()),
+            f"{kname} was launched on no step of the mesh path")
         kernels.append(k)
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
@@ -2509,6 +2977,7 @@ def main():
     log(f"ceremony phase: {json.dumps({k: v for k, v in cer.items() if k not in ('scans', 'norms')})}")
     log(f"phase 2: {json.dumps({k: v for k, v in mpc.items() if k not in ('scans', 'norms')})}")
     log(f"CLI phase: {json.dumps({k: v for k, v in clip.items() if k not in ('scans', 'norms')})}")
+    log(f"mesh phase: {json.dumps({k: v for k, v in mesh.items() if k not in ('scans', 'norms')})}")
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -7,13 +7,26 @@ Each namespace exposes the same operations as the reference module, taking
 file paths (like the CLI) or already-parsed objects.  Both snake_case and
 the reference's camelCase names are provided.  Every call that computes
 takes the port's keywords through `**kw`: `device` (None means the card;
-"cpu" runs the plain versions), and `vm` ("native" or "python") where a
-witness is calculated.
+"cpu" runs the plain versions), `vm` ("native" or "python") where a
+witness is calculated, and `mesh` (a `parallel.distributed.prover_mesh`)
+for the provers and the powers-of-tau steps that shard; with a mesh of
+several ranks only rank 0 writes a file.
 """
 
 from __future__ import annotations
 
 import json
+
+
+def _save(out, new, kw):
+    """out.save(new), on rank 0 only when a mesh is in kw."""
+    mesh = kw.get("mesh")
+    if mesh is not None:
+        from .parallel import distributed as pdist
+
+        if pdist.mesh_rank(mesh):
+            return
+    out.save(new)
 
 
 class _NS:
@@ -194,7 +207,7 @@ class _PowersOfTau(_NS):
 
         out, _chash = ptau_ops.contribute(_ptau(old), **kw)
         if new:
-            out.save(new)
+            _save(out, new, kw)
         return out
 
     @staticmethod
@@ -206,7 +219,7 @@ class _PowersOfTau(_NS):
         out, _chash = ptau_ops.beacon(_ptau(old), beacon_hash,
                                       int(num_iterations_exp), **kw)
         if new:
-            out.save(new)
+            _save(out, new, kw)
         return out
 
     @staticmethod
@@ -215,7 +228,7 @@ class _PowersOfTau(_NS):
 
         out = ptau_ops.prepare_phase2(_ptau(old), logger=logger, **kw)
         if new:
-            out.save(new)
+            _save(out, new, kw)
         return out
 
     @staticmethod
@@ -259,7 +272,7 @@ class _PowersOfTau(_NS):
 
         out = ptau_ops.import_response(_ptau(old), _load_bytes(response), **kw)
         if new:
-            out.save(new)
+            _save(out, new, kw)
         return out
 
     @staticmethod
@@ -268,7 +281,7 @@ class _PowersOfTau(_NS):
 
         out = ptau_ops.convert(_ptau(old), logger=logger, **kw)
         if new:
-            out.save(new)
+            _save(out, new, kw)
         return out
 
     @staticmethod

@@ -26,6 +26,14 @@ of a batch is a K-field launch (through `ftorch`):
   k + 1 over every block.
 * verification MSMs go to `MSMContext.run` (K-scan), the Fr NTTs of the
   Lagrange check to `ntt.ntt` (K-mm-norm from 2^12).
+* `mesh=` (a `parallel.distributed.prover_mesh`) on `apply_key_g1/g2`,
+  `contribute`, `beacon`, `group_lagrange_lem` and `prepare_phase2`: each
+  rank applies the key to its block of the points (the power ladder
+  restarted at the block's first point) and the blocks are all-gathered;
+  blocks of at least (4 * ndev)^2 points go through the four-step sharded
+  group iNTT (`parallel.sharded.group_intt_blocks`), every block of a group
+  in one call.  Every rank returns the same bytes; a contribution's key is
+  drawn on rank 0 and broadcast.
 
 The outputs are affine points, hashes and file bytes, so a different order
 of work gives the same bytes as the JAX package.  On the card every size
@@ -220,13 +228,48 @@ def _apply_keys(cv, g2: bool, parts, device=None) -> list:
     return outs
 
 
-def apply_key_g1(cv, lem, n: int, first: int, inc: int, device=None) -> bytes:
-    """G1.batchApplyKey on a LEM section: point i times first * inc^i."""
-    return _apply_keys(cv, False, [(lem, n, first, inc)], device)[0]
+def _apply_keys_over(cv, g2: bool, parts, device, mesh) -> list:
+    """`_apply_keys`, over the ranks of `mesh` when one is given (port of
+    _apply_key_sharded): this rank's block of the points of all parts, each
+    part cut to the block with its ladder restarted at the cut
+    (first * inc^offset), then every rank's block gathered in rank order, so
+    every rank returns the same bytes."""
+    from ..parallel import distributed as pdist
+
+    if mesh is None:
+        return _apply_keys(cv, g2, parts, device)
+    device = devmod.resolve(device)
+    total = sum(n for _, n, _, _ in parts)
+    fr = cv.fr
+    sz = _sz(cv, g2)
+    sl = pdist.local_shard_slice(total, mesh)
+    mine, pos = [], 0
+    for lem, n, first, inc in parts:
+        lo, hi = max(sl.start, pos), min(sl.stop, pos + n)
+        if lo < hi:
+            off = lo - pos
+            mine.append((memoryview(lem)[off * sz:], hi - lo,
+                         first * pow(inc, off, fr.p) % fr.p, inc))
+        pos += n
+    block = b"".join(_apply_keys(cv, g2, mine, device)) if mine else b""
+    every = b"".join(pdist.all_gather_bytes(mesh, block))
+    outs, pos = [], 0
+    for _, n, _, _ in parts:
+        outs.append(every[pos * sz:(pos + n) * sz])
+        pos += n
+    return outs
 
 
-def apply_key_g2(cv, lem, n: int, first: int, inc: int, device=None) -> bytes:
-    return _apply_keys(cv, True, [(lem, n, first, inc)], device)[0]
+def apply_key_g1(cv, lem, n: int, first: int, inc: int, device=None,
+                 mesh=None) -> bytes:
+    """G1.batchApplyKey on a LEM section: point i times first * inc^i.
+    mesh: shard the points over its ranks (`_apply_keys_over`)."""
+    return _apply_keys_over(cv, False, [(lem, n, first, inc)], device, mesh)[0]
+
+
+def apply_key_g2(cv, lem, n: int, first: int, inc: int, device=None,
+                 mesh=None) -> bytes:
+    return _apply_keys_over(cv, True, [(lem, n, first, inc)], device, mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -399,7 +442,7 @@ def _firsts(key: dict) -> dict:
     return {2: 1, 3: 1, 4: alpha, 5: beta_, 6: beta_}
 
 
-def _apply_sections(cv, power: int, lems: dict, key: dict, device) -> dict:
+def _apply_sections(cv, power: int, lems: dict, key: dict, device, mesh=None) -> dict:
     """Every section of an accumulator times its key powers: the G1
     sections (2, 4, 5) in one call of `_apply_keys`, the G2 ones (3, 6) in
     another.  lems: sid -> LEM; returns sid -> LEM."""
@@ -408,8 +451,8 @@ def _apply_sections(cv, power: int, lems: dict, key: dict, device) -> dict:
     out = {}
     for g2 in (False, True):
         secs = [(sid, n) for sid, is_g2, n, _ in _sections(power) if is_g2 == g2]
-        res = _apply_keys(cv, g2, [(lems[sid], n, first[sid], tau) for sid, n in secs],
-                          device)
+        res = _apply_keys_over(cv, g2, [(lems[sid], n, first[sid], tau) for sid, n in secs],
+                               device, mesh)
         out.update({sid: r for (sid, _), r in zip(secs, res)})
     return out
 
@@ -433,10 +476,12 @@ def new_accumulator(cv, power: int) -> PtauFile:
 
 def contribute(pt: PtauFile, name: str = "", entropy=None,
                rng: ChaCha | None = None, logger=None,
-               device=None) -> tuple[PtauFile, bytes]:
+               device=None, mesh=None) -> tuple[PtauFile, bytes]:
     """MPC contribution: scale all sections by the new key's powers
     (src/powersoftau_contribute.js:33-117).  Returns (new ptau, responseHash).
-    device: None means the card; raises without one."""
+    device: None means the card; raises without one.  mesh: shard the
+    apply-keys over its ranks; the key is drawn on rank 0 and broadcast, so
+    every rank returns the same file."""
     device = devmod.resolve(device)
     cv = pt.curve
     if pt.power != pt.ceremony_power:
@@ -446,13 +491,19 @@ def contribute(pt: PtauFile, name: str = "", entropy=None,
     if rng is None:
         rng = random_rng(entropy)
     key = keypair.create_ptau_key(cv, last_challenge, rng)
+    if mesh is not None:
+        from ..parallel import distributed as pdist
+
+        key = pdist.broadcast_object(mesh, key)
     return _apply_contribution(pt, key, Contribution(name=name, type=CONTRIB_MPC),
-                               device=device)
+                               device=device, mesh=mesh)
 
 
 def beacon(pt: PtauFile, beacon_hash: bytes, num_iterations_exp: int,
-           name: str = "", logger=None, device=None) -> tuple[PtauFile, bytes]:
-    """Deterministic beacon contribution (src/powersoftau_beacon.js)."""
+           name: str = "", logger=None, device=None,
+           mesh=None) -> tuple[PtauFile, bytes]:
+    """Deterministic beacon contribution (src/powersoftau_beacon.js).
+    mesh: shard the apply-keys over its ranks."""
     device = devmod.resolve(device)
     cv = pt.curve
     if not (0 < num_iterations_exp < 64):
@@ -462,7 +513,7 @@ def beacon(pt: PtauFile, beacon_hash: bytes, num_iterations_exp: int,
     contrib = Contribution(name=name, type=CONTRIB_BEACON,
                            num_iterations_exp=num_iterations_exp,
                            beacon_hash=beacon_hash)
-    return _apply_contribution(pt, key, contrib, device=device)
+    return _apply_contribution(pt, key, contrib, device=device, mesh=mesh)
 
 
 def _hash_section(hasher, cv, lem, n: int, g2: bool, conv, device):
@@ -470,12 +521,13 @@ def _hash_section(hasher, cv, lem, n: int, g2: bool, conv, device):
     hasher.update(conv(cv, lem, n, g2, device))
 
 
-def _apply_contribution(pt: PtauFile, key: dict, contrib: Contribution, device=None):
+def _apply_contribution(pt: PtauFile, key: dict, contrib: Contribution, device=None,
+                        mesh=None):
     cv = pt.curve
     contrib.key = key
     new = PtauFile(cv, pt.power, pt.ceremony_power,
                    contributions=list(pt.contributions))
-    new.sections.update(_apply_sections(cv, pt.power, pt.sections, key, device))
+    new.sections.update(_apply_sections(cv, pt.power, pt.sections, key, device, mesh))
 
     response_h = Blake2b(64)
     response_h.update(pt.last_challenge())
@@ -916,6 +968,29 @@ def _scale_batch(f, P, idx, scal):
             f.put(c, sl, v)
 
 
+def _scale_lanes(cv, g2: bool, f, P, idx, scal, device):
+    """P[idx] *= scal in place (Jacobian lanes, plain (NL, m) limb scalars):
+    `_scale_batch`, or on a CPU device for up to HOST_IFFT_MAX_CPU lanes one
+    host bigint multiplication (`_g_mul`) a lane, as the unsharded group
+    iNTT sends blocks up to that size to `host_group_ifft` there.  The
+    sharded group iNTT's stages (`parallel.sharded`) scale through this."""
+    if device.type != "cpu" or idx.shape[0] > HOST_IFFT_MAX_CPU:
+        _scale_batch(f, P, idx, scal)
+        return
+    fq = cv.fq
+    ext = 2 if g2 else 1
+    ints = lambda t: [fq.from_mont(v) for v in ftorch.np_to_ints(fq, t[:, idx])]
+    coords = [list(zip(ints(c[0]), ints(c[1]))) if g2 else ints(c) for c in P]
+    out = []
+    for X, Y, Z, k in zip(*coords, ftorch.np_to_ints(cv.fr, scal)):
+        A = msm_mod.host_jac_to_affine(fq, (X, Y, Z), ext)
+        out.append(None if A is None else _g_mul(cv, g2, A, k))
+    conv = pcodec.g2_lem_from_ints if g2 else pcodec.g1_lem_from_ints
+    Q = jac.from_affine(f, *_lem_points(cv, conv(fq, out), len(out), g2, device))
+    for c, v in zip(P, Q):
+        f.put(c, idx, v)
+
+
 def _intt_stage(cv, g2: bool, P, blocks, i: int, pending: list, device) -> int:
     """Stage i of the batched group iNTT, in place on the Jacobian lanes P.
 
@@ -1047,15 +1122,66 @@ def _lagrange_blocks(cv, g2: bool, blocks, device, force_device=False,
     return outs
 
 
+def _sharded_min(mesh) -> int:
+    """Blocks of at least this many points take the four-step sharded group
+    iNTT over `mesh` (the JAX package's cutover)."""
+    from ..parallel import distributed as pdist
+
+    return (4 * pdist.mesh_size(mesh)) ** 2
+
+
+def _lem_columns(cv, g2: bool, lem, k: int, mesh, device):
+    """This rank's columns of a block of 2^k LEM points seen as an (n1, n2)
+    matrix (`sharded.group_intt_blocks`): (x, y, inf, k), leaves
+    (NL, n1, n2 / ndev); only those points are decoded and uploaded."""
+    from ..parallel import distributed as pdist
+    from ..parallel import sharded
+
+    ndev, r = pdist.mesh_size(mesh), pdist.mesh_rank(mesh)
+    k1, k2 = sharded._split(k)
+    n1, n2loc = 1 << k1, (1 << k2) // ndev
+    sz = _sz(cv, g2)
+    raw = np.frombuffer(memoryview(lem)[:(1 << k) * sz], dtype=np.uint8)
+    mine = raw.reshape(n1, 1 << k2, sz)[:, r * n2loc:(r + 1) * n2loc].tobytes()
+    x, y, inf = _lem_points(cv, mine, n1 * n2loc, g2, device)
+    shape = lambda a: a.reshape(a.shape[:-1] + (n1, n2loc))
+    return _tree(shape, x), _tree(shape, y), shape(inf), k
+
+
+def _lagrange_blocks_sharded(cv, g2: bool, blocks, device, mesh) -> list:
+    """`_lagrange_blocks` over the mesh: blocks of at least `_sharded_min`
+    points through the sharded four-step group iNTT, together in one call
+    with the smaller ones riding along on every rank."""
+    from ..parallel import sharded
+
+    sz = _sz(cv, g2)
+    outs = [None] * len(blocks)
+    big = [j for j, (_, k) in enumerate(blocks) if (1 << k) >= _sharded_min(mesh)]
+    small = [j for j, (_, k) in enumerate(blocks) if k and j not in big]
+    for j, (lem, k) in enumerate(blocks):
+        if not k:
+            outs[j] = bytes(memoryview(lem)[:sz])
+    cols = [_lem_columns(cv, g2, *blocks[j], mesh, device) for j in big]
+    whole = [_lem_points(cv, blocks[j][0], 1 << blocks[j][1], g2, device) + (blocks[j][1],)
+             for j in small]
+    res = sharded.group_intt_blocks(mesh, cv, g2, cols, whole, device)
+    for j, (x, y, inf) in zip(big + small, res):
+        outs[j] = _lem_bytes(cv, g2, x, y, inf)
+    return outs
+
+
 def group_lagrange_lem(cv, lem, n: int, g2: bool, force_device: bool = False,
-                       device=None) -> bytes:
+                       device=None, mesh=None) -> bytes:
     """G.lagrangeEvaluations on a LEM slice: group IFFT -> Lagrange-basis
     points [L_j(tau) G]_j.  Groups of order 2^k need k <= s (the field's
-    2-adicity)."""
+    2-adicity).  mesh: a block of at least (4 * ndev)^2 points goes through
+    the four-step sharded group iNTT (`parallel.sharded`)."""
     device = devmod.resolve(device)
     k = n.bit_length() - 1
     if 1 << k != n or k > cv.fr.s:
         raise ValueError(f"a group iNTT needs 2^k points with k <= {cv.fr.s}")
+    if mesh is not None and n >= _sharded_min(mesh):
+        return _lagrange_blocks_sharded(cv, g2, [(lem, k)], device, mesh)[0]
     return _lagrange_blocks(cv, g2, [(lem, k)], device, force_device)[0]
 
 
@@ -1081,16 +1207,20 @@ def _section_blocks(cv, pt: PtauFile, old_sid: int, g2: bool) -> list:
     return out
 
 
-def _lagrange_sections(cv, pt: PtauFile, which, device, logger=None) -> dict:
+def _lagrange_sections(cv, pt: PtauFile, which, device, logger=None, mesh=None) -> dict:
     """new sid -> bytes of the Lagrange sections in `which` (entries of
-    _LAGRANGE), every block of one group in one batched group iNTT."""
+    _LAGRANGE), every block of one group in one batched group iNTT (with
+    `mesh`, the sharded one)."""
     out = {}
     for g2 in (False, True):
         secs = [(old, new) for old, new, is_g2, _ in which if is_g2 == g2]
         if not secs:
             continue
         blocks = [b for old, _ in secs for b in _section_blocks(cv, pt, old, g2)]
-        res = _lagrange_blocks(cv, g2, blocks, device, logger=logger)
+        if mesh is not None:
+            res = _lagrange_blocks_sharded(cv, g2, blocks, device, mesh)
+        else:
+            res = _lagrange_blocks(cv, g2, blocks, device, logger=logger)
         pos = 0
         for old, new in secs:
             nb = pt.power + (2 if old == 2 else 1)
@@ -1099,15 +1229,17 @@ def _lagrange_sections(cv, pt: PtauFile, which, device, logger=None) -> dict:
     return out
 
 
-def prepare_phase2(pt: PtauFile, logger=None, device=None) -> PtauFile:
+def prepare_phase2(pt: PtauFile, logger=None, device=None, mesh=None) -> PtauFile:
     """Append Lagrange sections 12-15 (src/powersoftau_preparephase2.js).
-    device: None means the card; raises without one."""
+    device: None means the card; raises without one.  mesh: the blocks of
+    at least (4 * ndev)^2 points go through the sharded group iNTT; every
+    rank returns the same file."""
     device = devmod.resolve(device)
     cv = pt.curve
     new = PtauFile(cv, pt.power, pt.ceremony_power,
                    sections=dict(pt.sections),
                    contributions=list(pt.contributions))
-    new.sections.update(_lagrange_sections(cv, pt, _LAGRANGE, device, logger))
+    new.sections.update(_lagrange_sections(cv, pt, _LAGRANGE, device, logger, mesh))
     return new
 
 

@@ -410,12 +410,49 @@ def fflonk_setup_cmd(r1cs_path, ptau_path, zkey_out, device="cuda", **kw):
     return 0
 
 
+def _rank_devices(devices, device):
+    """--devices N -> one device per rank (cuda:0 .. cuda:N-1, or N CPU
+    ranks with --device=cpu); None/1 -> one process, no mesh.  Raises
+    before any rank starts when fewer cards are visible."""
+    if not devices or int(devices) <= 1:
+        return None
+    import torch
+
+    n = int(devices)
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if visible < n:
+        raise ValueError(f"--devices {n}: only {visible} devices visible")
+    return [f"cuda:{r}" for r in range(n)]
+
+
+def _prove_rank(rank, proto, zkey_path, wtns_path, proof_out, public_out):
+    """One rank of `--devices N`: the prove over the mesh of all ranks;
+    rank 0 alone writes the files."""
+    from .parallel import distributed as pdist
+
+    proof, publics = _proto_module(proto).prove_files(
+        zkey_path, wtns_path, logger=_log(), device=pdist.device(),
+        mesh=pdist.prover_mesh())
+    if rank == 0:
+        _write_json(proof_out, proof)
+        _write_json(public_out, publics)
+
+
 def _prove(proto, zkey_path, wtns_path, proof_out="proof.json",
            public_out="public.json", devices=None, device="cuda", **kw):
-    """Prove with an existing zkey + witness on one card."""
-    if devices and int(devices) > 1:
-        raise ValueError(f"--devices {devices}: proving over several devices is "
-                         "not ported yet (ROADMAP A5); run on one")
+    """Prove with an existing zkey + witness; --devices N shards the
+    MSMs/NTTs over N ranks (`parallel.distributed.spawn`: one process a
+    device, joined within its time limit)."""
+    ranks = _rank_devices(devices, device)
+    if ranks is not None:
+        from .parallel import distributed as pdist
+
+        pdist.spawn(_prove_rank, len(ranks), args=(proto, zkey_path, wtns_path,
+                                                   proof_out, public_out),
+                    devices=ranks)
+        return 0
     proof, publics = _proto_module(proto).prove_files(
         zkey_path, wtns_path, logger=_log(), device=device)
     _write_json(proof_out, proof)

@@ -339,39 +339,82 @@ class GpuMSM:
         flatW = self._program(C, RL, nw, device)(px, py, pinf, scalars)
         return self._finish(ftorch.to_numpy(flatW))
 
+    def run_sharded(self, mesh, px, py, pinf, scalars):
+        """MSM with the points sharded over the ranks of `mesh` (port of
+        TpuMSM.run_sharded): each rank runs K-scan and phase 2 on its block
+        `local_shard_slice(n, mesh)`, every block padded to the same C * RL;
+        the (nro, nw) window partials are all-gathered and combined on host
+        bigints, so every rank returns the same point.
+
+        scalars: the full (rows, n) digits; px, py, pinf: the full point
+        arrays or this rank's block of them (a key uploads only its block)."""
+        from ..parallel import distributed as pdist
+
+        n = scalars.shape[-1]
+        device = scalars.device
+        nw = self.n_windows(scalars.shape[0])
+        sl = pdist.local_shard_slice(n, mesh)
+        px, py, pinf = local_block(n, sl, px, py, pinf, device)
+        per = -(-n // pdist.mesh_size(mesh))
+        RL = _lanes(nw, per, device)
+        C = max(1, -(-per // RL))
+        px, py, pinf, scal = _pad_to(C * RL, px, py, pinf, scalars[:, sl])
+        flatW = self._program(C, RL, nw, device)(px, py, pinf, scal)   # (nro, nw)
+        parts = pdist.all_gather(mesh, flatW)                           # (ndev, nro, nw)
+        return self._finish(ftorch.to_numpy(parts.permute(1, 2, 0)))
+
     def _finish(self, flatW: np.ndarray):
-        """Host window combination (bigints): W = sum_w 2^(cw*w) W_w."""
+        """Host window combination (bigints): W = sum_w 2^(cw*w) W_w.
+
+        flatW: (nro, nw) window partials, or (nro, nw, ndev) with one
+        partial a rank; each partial is made affine and added."""
         from . import msm as msm_mod
 
         fq, ext = self.fq, self.ext
         nl = fq.nl
-        nw = flatW.shape[1]
-        ints = ftorch.np_to_ints(fq, flatW.reshape(3 * ext, nl, nw)
-                                 .transpose(1, 0, 2))              # [coord*nw + w]
+        if flatW.ndim == 2:
+            flatW = flatW[:, :, None]
+        _, nw, ndev = flatW.shape
+        ints = ftorch.np_to_ints(fq, flatW.reshape(3 * ext, nl, nw * ndev)
+                                 .transpose(1, 0, 2))      # [(coord*nw + w)*ndev + d]
 
-        def elem(k, w):
-            if ext == 1:
-                return fq.from_mont(ints[k * nw + w])
-            return (fq.from_mont(ints[2 * k * nw + w]),
-                    fq.from_mont(ints[(2 * k + 1) * nw + w]))
+        def elem(k, w, d):
+            at = lambda row: fq.from_mont(ints[(row * nw + w) * ndev + d])
+            return at(k) if ext == 1 else (at(2 * k), at(2 * k + 1))
 
         total = None
         for w in range(nw - 1, -1, -1):
             if total is not None:
                 for _ in range(self.cw):
                     total = msm_mod._host_jac_dbl(fq, total, ext)
-            X, Y, Z = elem(0, w), elem(1, w), elem(2, w)
-            if msm_mod._f_is_zero(Z, ext):
-                continue
-            Zi = _f_inv(fq, Z, ext)
-            x = msm_mod._f_mul(fq, X, Zi, ext)
-            y = msm_mod._f_mul(fq, Y, Zi, ext)
-            total = msm_mod._host_jac_add(fq, total, (x, y, msm_mod._f_int(1, ext)),
-                                          ext)
+            for d in range(ndev):
+                X, Y, Z = elem(0, w, d), elem(1, w, d), elem(2, w, d)
+                if msm_mod._f_is_zero(Z, ext):
+                    continue
+                Zi = _f_inv(fq, Z, ext)
+                x = msm_mod._f_mul(fq, X, Zi, ext)
+                y = msm_mod._f_mul(fq, Y, Zi, ext)
+                total = msm_mod._host_jac_add(fq, total, (x, y, msm_mod._f_int(1, ext)),
+                                              ext)
         if total is None:
             total = (msm_mod._f_int(0, ext), msm_mod._f_int(1, ext),
                      msm_mod._f_int(0, ext))
         return total
+
+
+def local_block(n: int, sl: slice, px, py, pinf, device):
+    """This rank's block [sl] of a length-n point axis on `device`: the
+    arrays may hold all n points or already just the block."""
+    size = max(0, sl.stop - sl.start)
+    have = pinf.shape[-1]
+    if have == n:
+        take = lambda a: a[..., sl]
+    elif have == size:
+        take = lambda a: a
+    else:
+        raise ValueError(f"points: {have} of them, neither all {n} nor the block of {size}")
+    put = lambda a: take(a).to(device)
+    return _map(put, px), _map(put, py), put(pinf)
 
 
 def _pad_to(target, px, py, pinf, scalars):

@@ -13,6 +13,7 @@ segment-sum QAP evaluation.  (Own copy of snarkjs_tpu/formats/r1cs.py.)
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,36 +60,26 @@ def read_r1cs(path_or_bytes, load_map: bool = True) -> R1cs:
 
     data = bf.read_section(2)
     raw = np.frombuffer(data, dtype=np.uint8)
-    # parse with a fast scan: structure is variable-length, walk with numpy
-    ms, cs, ss, val_chunks = [], [], [], []
-    pos = 0
     entry_sz = 4 + n8
-    u32 = lambda p: int.from_bytes(data[p:p + 4], "little")
-    for cidx in range(n_constraints):
-        for midx in range(3):
-            ne = u32(pos)
-            pos += 4
-            if ne:
-                block = raw[pos: pos + ne * entry_sz].reshape(ne, entry_sz)
-                sids = np.ascontiguousarray(block[:, :4]).view("<u4").ravel()
-                vals = np.ascontiguousarray(block[:, 4:])
-                ms.append(np.full(ne, midx, dtype=np.int32))
-                cs.append(np.full(ne, cidx, dtype=np.int32))
-                ss.append(sids.astype(np.int32))
-                val_chunks.append(vals)
-                pos += ne * entry_sz
-
-    if ms:
-        m = np.concatenate(ms)
-        c = np.concatenate(cs)
-        s = np.concatenate(ss)
-        allvals = np.concatenate(val_chunks, axis=0)
-        u16 = np.ascontiguousarray(allvals).reshape(-1).view("<u2").reshape(
-            len(m), fr_nl)
-        vals = np.ascontiguousarray(u16.T).astype(np.uint32)
-    else:
-        m = c = s = np.zeros(0, dtype=np.int32)
-        vals = np.zeros((fr_nl, 0), dtype=np.uint32)
+    # walk the headers (u32 nEntries before each of a constraint's A, B, C)
+    # on the host, then cut every entry out of the section at once
+    unpack = struct.Struct("<I").unpack_from
+    counts, pos = [], 0
+    for _ in range(3 * n_constraints):
+        ne = unpack(data, pos)[0]
+        counts.append(ne)
+        pos += 4 + ne * entry_sz
+    counts = np.array(counts, dtype=np.int64)
+    heads = np.cumsum(4 + counts * entry_sz) - (4 + counts * entry_sz)
+    is_entry = np.ones(pos, dtype=bool)
+    is_entry[(heads[:, None] + np.arange(4)).ravel()] = False
+    block = raw[:pos][is_entry].reshape(-1, entry_sz)
+    lc = np.repeat(np.arange(3 * n_constraints, dtype=np.int64), counts)
+    m = (lc % 3).astype(np.int32)
+    c = (lc // 3).astype(np.int32)
+    s = np.ascontiguousarray(block[:, :4]).view("<u4").ravel().astype(np.int32)
+    u16 = np.ascontiguousarray(block[:, 4:]).view("<u2").reshape(len(lc), fr_nl)
+    vals = np.ascontiguousarray(u16.T).astype(np.uint32)
 
     wmap = None
     if load_map and 3 in bf.sections:

@@ -115,13 +115,14 @@ def _twiddle_parts(field_name: str, k: int, k1: int, inverse: bool):
     n2 = n >> k1
     s = 1 << ((k2 + 1) // 2)
     root = fp.winv[k] if inverse else fp.w[k]
-    tab = ftorch.np_from_ints(fp, [fp.to_mont(v)
-                                   for v in _root_powers(fp, root, n)])
 
     def table(step, rows):
-        idx = (np.outer(np.arange(rows, dtype=np.int64) * step,
-                        np.arange(n1, dtype=np.int64))) % n
-        return np.ascontiguousarray(tab[:, idx])
+        # row r: root^(r * step * j1) for j1 < n1, a running product a row
+        vals = []
+        for r in range(rows):
+            vals += _root_powers(fp, pow(root, r * step, fp.p), n1)
+        return np.ascontiguousarray(ftorch.np_from_ints(
+            fp, [fp.to_mont(v) for v in vals]).reshape(fp.nl, rows, n1))
 
     return s, table(1, s), table(s, n2 // s)
 

@@ -37,6 +37,7 @@ from ..curves import msm as msm_mod
 from ..fields import ftorch
 from ..formats import wtns as wtns_fmt
 from ..formats import zkey as zkey_fmt
+from .groth16 import draw_once
 from ..ntt import ntt as nttmod
 from ..poly import fops
 from .fflonk_setup import combine_polys
@@ -278,17 +279,21 @@ def verify(vk_obj: dict, publics, proof_obj: dict, logger=None) -> bool:
 # ---------------------------------------------------------------------------
 # prover
 
-def _dev_key(zk: zkey_fmt.FflonkZkey, dev) -> dict:
+def _dev_key(zk: zkey_fmt.FflonkZkey, dev, mesh=None) -> dict:
     """The key's polynomial sections, wire maps, additions, C0 coefficients
-    and whole SRS as tensors on `dev`, uploaded once per key and device."""
+    and whole SRS as tensors on `dev`, uploaded once per key and device;
+    with `mesh` only this rank's block of the SRS."""
+    from .groth16 import _shard_key, point_block
+
     cache = zk.__dict__.setdefault("_dev_key", {})
-    key = str(dev)
+    key = (str(dev), _shard_key(mesh))
     if key not in cache:
         up = lambda a: ftorch.to_tensor(a, dev)
         idx = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)
         ptx, pty, ptinf = zk.ptau
-        d = {"ptau": (up(ptx), up(pty),
-                      torch.from_numpy(np.array(ptinf, dtype=bool)).to(dev)),
+        ptinf = np.asarray(ptinf, dtype=bool)
+        d = {"ptau": point_block((ptx, pty, ptinf), ptinf.shape[0], mesh, dev),
+             "n_srs": ptinf.shape[0],
              "lagrange": up(zk.lagrange), "c0": up(zk.c0_coefs),
              "a_map": idx(zk.a_map), "b_map": idx(zk.b_map), "c_map": idx(zk.c_map),
              "add_a": idx(zk.additions["a"]), "add_b": idx(zk.additions["b"]),
@@ -301,13 +306,16 @@ def _dev_key(zk: zkey_fmt.FflonkZkey, dev) -> dict:
 
 
 def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
-          logger=None, device=None, msm_cw: int = 16):
+          logger=None, device=None, msm_cw: int = 16, mesh=None):
     """Generate an FFLONK proof: (proof JSON object, public signals).
 
     b: optional list of 10 blinding ints, b[1..9] used (tests); drawn with
     `secrets` when not given.  device: None means the card ("cuda"); raises
     without one.  msm_cw: the commitments' window width (16 on the card for
-    large inputs; `MSMContext.run` takes 8 below 2^14 points and off it)."""
+    large inputs; `MSMContext.run` takes 8 below 2^14 points and off it).
+    mesh: a `parallel.distributed.prover_mesh`: the four commitment MSMs
+    run with the SRS sharded over its ranks; b is drawn on rank 0, so every
+    rank returns the same proof."""
     dev = devmod.resolve(device)
     cv = zk.curve
     fr = cv.fr
@@ -324,7 +332,7 @@ def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
         raise ValueError("Invalid witness length")
 
     if b is None:
-        b = [secrets.randbelow(p) for _ in range(10)]  # b[1..9] used
+        b = draw_once(mesh, lambda: [secrets.randbelow(p) for _ in range(10)])  # b[1..9]
     sc = lambda v: fops.scalar_arr(ctx, v, dev)
     bm = [None] + [sc(x) for x in b[1:10]]
     zeros = lambda k: torch.zeros((nl, k), dtype=ftorch.DTYPE, device=dev)
@@ -332,7 +340,7 @@ def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
     add = lambda a, bb: ftorch.add(ctx, a, bb)
     sub = lambda a, bb: ftorch.sub(ctx, a, bb)
     one = ctx.one((1,), dev)
-    key = _dev_key(zk, dev)
+    key = _dev_key(zk, dev, mesh)
 
     # --- witness incl. additions (fflonk_prove.js:261-293) ----------------
     wit = ftorch.to_tensor(witness.values, dev)
@@ -397,7 +405,7 @@ def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
 
     g1m = msm_mod.MSMContext(ftorch.get_ctx(cv.fq.name), cv.fq, extension=1)
     dptx, dpty, dptinf = key["ptau"]
-    M = dptinf.shape[0]
+    M = key["n_srs"]
 
     def commit(coefs):
         # every commitment is padded to the whole SRS: one MSM shape for all
@@ -405,7 +413,7 @@ def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
         if m > M:
             raise ValueError(f"commitment degree {m} exceeds SRS length {M}")
         scal = fops.pad_to(ftorch.from_mont(ctx, coefs), M)
-        res = g1m.run(dptx, dpty, dptinf, scal, cw=msm_cw)
+        res = g1m.run(dptx, dpty, dptinf, scal, cw=msm_cw, mesh=mesh)
         return msm_mod.host_jac_to_affine(cv.fq, res, 1)
 
     commitC1 = commit(polC1)

@@ -10,12 +10,16 @@ Prover pipeline, on the card by default:
      up, K-field below); P_odd = A_odd*B_odd - C_odd in plain form.
   3. Five MSMs (A, B1, B2, C, H) on the suffix-scan engine (K-scan + K-field).
   4. Blinding with r, s and the affine conversions on host bigints.
+
+With `mesh` the NTTs run four-step sharded (`parallel.sharded.ntt_sharded`)
+and the MSMs with their points sharded (`GpuMSM.run_sharded`).
 """
 
 from __future__ import annotations
 
 import secrets
 
+import numpy as np
 import torch
 
 from .. import device as devmod
@@ -47,8 +51,9 @@ def _segment_field_sum(ctx, values, ids, num_segments):
     return reduce_wide(ctx, limbs.to(ftorch.DTYPE), carry)
 
 
-def qap(ctx, domain_size, coef_val, coef_m, coef_c, coef_s, witness):
-    """buildABC + the six QAP NTTs -> plain-form P_odd (NL, domain)."""
+def qap(ctx, domain_size, coef_val, coef_m, coef_c, coef_s, witness, mesh=None):
+    """buildABC + the six QAP NTTs -> plain-form P_odd (NL, domain).
+    mesh: the NTTs run four-step sharded over its ranks."""
     fp = ctx.fp
     k = domain_size.bit_length() - 1
     inc = fp.w[k + 1] if k < fp.s else fp.shift
@@ -61,6 +66,11 @@ def qap(ctx, domain_size, coef_val, coef_m, coef_c, coef_s, witness):
     C_T = ftorch.mont_mul(ctx, A_T, B_T)
 
     def odd_evals(X):
+        if mesh is not None:
+            from ..parallel import sharded
+
+            coeffs = sharded.ntt_sharded(mesh, ctx, X, inverse=True)
+            return sharded.ntt_sharded(mesh, ctx, nttmod.apply_powers(ctx, coeffs, 1, inc))
         coeffs = nttmod.intt(ctx, X)
         return nttmod.ntt(ctx, nttmod.apply_powers(ctx, coeffs, 1, inc))
 
@@ -69,32 +79,32 @@ def qap(ctx, domain_size, coef_val, coef_m, coef_c, coef_s, witness):
     return ftorch.from_mont(ctx, P)
 
 
-def _dev_points(zkey, dev):
-    """The zkey's MSM bases as device tensors, uploaded once per device."""
+def _dev_points(zkey, dev, mesh=None):
+    """The zkey's MSM bases as device tensors, uploaded once per device;
+    with `mesh` only this rank's block of each point set
+    (`local_shard_slice`)."""
     cache = zkey.__dict__.setdefault("_dev_points", {})
-    key = str(dev)
+    key = (str(dev), _shard_key(mesh))
     if key not in cache:
-        def put(t):
-            if isinstance(t, tuple):
-                return tuple(put(x) for x in t)
-            if t.dtype == bool:
-                return torch.from_numpy(t.copy()).to(dev)
-            return ftorch.to_tensor(t, dev)
-
-        cache[key] = put((zkey.a_points, zkey.b1_points, zkey.b2_points,
-                          zkey.c_points, zkey.h_points))
+        cache[key] = tuple(point_block(p, p[2].shape[-1], mesh, dev)
+                           for p in (zkey.a_points, zkey.b1_points, zkey.b2_points,
+                                     zkey.c_points, zkey.h_points))
     return cache[key]
 
 
 def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
           r: int | None = None, s: int | None = None, msm_cw: int = 16,
-          device=None, out: dict | None = None, logger=None):
+          device=None, out: dict | None = None, logger=None, mesh=None):
     """Groth16 proof and public signals (reference src/groth16_prove.js:28-144).
 
     device: None means the card ("cuda"); raises without one.  r, s: the
     blinding scalars, drawn with `secrets` when not given.  out: if a dict,
     receives the device P_odd and the five MSM results (host jacobian).
-    logger: gets a `debug` line before the QAP and before each MSM."""
+    logger: gets a `debug` line before the QAP and before each MSM.
+    mesh: a `parallel.distributed.prover_mesh`: the six QAP NTTs run
+    four-step sharded and the five MSMs with the points sharded over its
+    ranks (each rank uploads its block of the key's points); r and s are
+    drawn on rank 0, so every rank returns the same proof."""
     dev = devmod.resolve(device)
     log = logger.debug if logger else (lambda msg: None)
     cv = zkey.curve
@@ -111,22 +121,23 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     wit = ftorch.to_tensor(witness.values, dev)
     log("QAP: buildABC + 6 NTTs")
     p_odd = qap(ctx, zkey.domain_size, ftorch.to_tensor(co["val"], dev),
-                idx(co["m"]), idx(co["c"]), idx(co["s"]), wit)
+                idx(co["m"]), idx(co["c"]), idx(co["s"]), wit, mesh)
 
     fqctx = ftorch.get_ctx(fq.name)
     g1m = msm_mod.MSMContext(fqctx, fq, extension=1)
     g2m = msm_mod.MSMContext(fqctx, fq, extension=2)
-    a_pts, b1_pts, b2_pts, c_pts, h_pts = _dev_points(zkey, dev)
+    a_pts, b1_pts, b2_pts, c_pts, h_pts = _dev_points(zkey, dev, mesh)
+    mk = dict(cw=msm_cw, mesh=mesh)
     log("Multiexp A")
-    pi_a = g1m.run(*a_pts, wit, cw=msm_cw)
+    pi_a = g1m.run(*a_pts, wit, **mk)
     log("Multiexp B1")
-    pi_b1 = g1m.run(*b1_pts, wit, cw=msm_cw)
+    pi_b1 = g1m.run(*b1_pts, wit, **mk)
     log("Multiexp B2")
-    pi_b = g2m.run(*b2_pts, wit, cw=msm_cw)
+    pi_b = g2m.run(*b2_pts, wit, **mk)
     log("Multiexp C")
-    pi_c = g1m.run(*c_pts, wit[:, zkey.n_public + 1:], cw=msm_cw)
+    pi_c = g1m.run(*c_pts, wit[:, zkey.n_public + 1:], **mk)
     log("Multiexp H")
-    res_h = g1m.run(*h_pts, p_odd, cw=msm_cw)
+    res_h = g1m.run(*h_pts, p_odd, **mk)
     if out is not None:
         out.update(p_odd=p_odd, A=pi_a, B1=pi_b1, B2=pi_b, C=pi_c, H=res_h)
 
@@ -135,13 +146,49 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     B2 = msm_mod.host_jac_to_affine(fq, pi_b, 2)
     C = msm_mod.host_jac_to_affine(fq, pi_c, 1)
     H = msm_mod.host_jac_to_affine(fq, res_h, 1)
-    if r is None:
-        r = secrets.randbelow(fr.p)
-    if s is None:
-        s = secrets.randbelow(fr.p)
+    r, s = draw_once(mesh, lambda: (secrets.randbelow(fr.p) if r is None else r,
+                                    secrets.randbelow(fr.p) if s is None else s))
     proof = blind(zkey, A, B1, B2, C, H, r, s)
     publics = ftorch.np_to_ints(fr, witness.values[:, 1:zkey.n_public + 1])
     return proof, [str(x) for x in publics]
+
+
+def _shard_key(mesh):
+    """What a rank's block of a key depends on: (mesh size, rank)."""
+    if mesh is None:
+        return None
+    from ..parallel import distributed as pdist
+
+    return pdist.mesh_size(mesh), pdist.mesh_rank(mesh)
+
+
+def point_block(pts, n: int, mesh, dev):
+    """The first n points of an (x, y, inf) numpy set on `dev`, or with a
+    mesh only this rank's block of them (`local_shard_slice`)."""
+    sl = slice(0, n)
+    if mesh is not None:
+        from ..parallel import distributed as pdist
+
+        sl = pdist.local_shard_slice(n, mesh)
+
+    def put(t):
+        if isinstance(t, tuple):
+            return tuple(put(x) for x in t)
+        if t.dtype == bool:
+            return torch.from_numpy(np.ascontiguousarray(t[sl])).to(dev)
+        return ftorch.to_tensor(t[..., sl], dev)
+
+    return put(pts)
+
+
+def draw_once(mesh, draw):
+    """draw() here, or with a mesh on rank 0 and broadcast: random blinders
+    the same on every rank."""
+    if mesh is None:
+        return draw()
+    from ..parallel import distributed as pdist
+
+    return pdist.broadcast_object(mesh, draw() if pdist.mesh_rank(mesh) == 0 else None)
 
 
 def blind(zkey, A, B1, B2, C, H, r: int, s: int) -> dict:

@@ -33,6 +33,7 @@ from ..curves import msm as msm_mod
 from ..fields import ftorch
 from ..formats import wtns as wtns_fmt
 from ..formats import zkey as zkey_fmt
+from .groth16 import draw_once
 from ..ntt import ntt as nttmod
 from ..poly import fops
 from ..utils.keccak import keccak256
@@ -282,17 +283,19 @@ def _mulz_tables(fp):
     return z1, z2, z3
 
 
-def _dev_key(zk: zkey_fmt.PlonkZkey, dev, M: int) -> dict:
+def _dev_key(zk: zkey_fmt.PlonkZkey, dev, M: int, mesh=None) -> dict:
     """The key's polynomial sections, wire maps and the first M SRS points as
-    tensors on `dev`, uploaded once per key and device."""
+    tensors on `dev`, uploaded once per key and device; with `mesh` only
+    this rank's block of the M points."""
+    from .groth16 import _shard_key, point_block
+
     cache = zk.__dict__.setdefault("_dev_key", {})
-    key = (str(dev), M)
+    key = (str(dev), M, _shard_key(mesh))
     if key not in cache:
         up = lambda a: ftorch.to_tensor(a, dev)
         idx = lambda a: torch.from_numpy(np.asarray(a).astype(np.int64)).to(dev)
         ptx, pty, ptinf = zk.ptau
-        d = {"ptau": (up(ptx[:, :M]), up(pty[:, :M]),
-                      torch.from_numpy(np.array(ptinf[:M], dtype=bool)).to(dev)),
+        d = {"ptau": point_block((ptx, pty, np.asarray(ptinf, dtype=bool)), M, mesh, dev),
              "lagrange": up(zk.lagrange),
              "a_map": idx(zk.a_map), "b_map": idx(zk.b_map), "c_map": idx(zk.c_map),
              "add_a": idx(zk.additions["a"]), "add_b": idx(zk.additions["b"]),
@@ -305,17 +308,19 @@ def _dev_key(zk: zkey_fmt.PlonkZkey, dev, M: int) -> dict:
 
 
 def prove(zk: zkey_fmt.PlonkZkey, witness: wtns_fmt.Witness, b=None,
-          logger=None, device=None):
+          logger=None, device=None, mesh=None):
     """Generate a PLONK proof: (proof JSON object, public signals).
 
     b: optional list of 12 blinding ints, b[1..11] used (tests); drawn with
     `secrets` when not given.  device: None means the card ("cuda"); raises
-    without one."""
-    proof, publics, _ = _prove_rounds(zk, witness, b, logger, device)
+    without one.  mesh: a `parallel.distributed.prover_mesh`: the nine
+    commitment MSMs run with the SRS points sharded over its ranks; b is
+    drawn on rank 0, so every rank returns the same proof."""
+    proof, publics, _ = _prove_rounds(zk, witness, b, logger, device, mesh)
     return proof, publics
 
 
-def _prove_rounds(zk, witness, b, logger, device):
+def _prove_rounds(zk, witness, b, logger, device, mesh=None):
     """The five rounds of `prove`.  Returns (proof, publics, polys): polys
     holds the device tensors (Montgomery coefficients) of the blinded
     polynomials A, B, C, Z, the quotient parts T1, T2, T3 and the opening
@@ -334,7 +339,7 @@ def _prove_rounds(zk, witness, b, logger, device):
         raise ValueError("invalid witness length")
 
     if b is None:
-        b = [secrets.randbelow(p) for _ in range(12)]  # b[1..11] used
+        b = draw_once(mesh, lambda: [secrets.randbelow(p) for _ in range(12)])  # b[1..11]
     sc = lambda v: fops.scalar_arr(ctx, v, dev)
     bm = [None] + [sc(x) for x in b[1:12]]
     zeros = lambda k: torch.zeros((nl, k), dtype=ftorch.DTYPE, device=dev)
@@ -343,7 +348,7 @@ def _prove_rounds(zk, witness, b, logger, device):
     sub = lambda a, bb: ftorch.sub(ctx, a, bb)
 
     M = min(n + 6, zk.ptau[2].shape[0])
-    key = _dev_key(zk, dev, M)
+    key = _dev_key(zk, dev, M, mesh)
 
     # --- witness incl. additions (reference calculateAdditions :174-204) ---
     wit = ftorch.to_tensor(witness.values, dev)
@@ -406,7 +411,7 @@ def _prove_rounds(zk, witness, b, logger, device):
         if m > M:
             raise ValueError(f"commitment degree {m} exceeds SRS length {M}")
         scal = fops.pad_to(ftorch.from_mont(ctx, coefs), M)
-        res = g1m.run(dptx, dpty, dptinf, scal)
+        res = g1m.run(dptx, dpty, dptinf, scal, mesh=mesh)
         return msm_mod.host_jac_to_affine(cv.fq, res, 1)
 
     commitA = commit(polA_b)

@@ -45,6 +45,8 @@ PORT_MODULES = [
     "snarkjs_tpu_torch.wasm.interp", "snarkjs_tpu_torch.wasm.native",
     "snarkjs_tpu_torch.wasm.witness_calculator", "snarkjs_tpu_torch.tools",
     "snarkjs_tpu_torch.api", "snarkjs_tpu_torch.cli", "snarkjs_tpu_torch.__main__",
+    "snarkjs_tpu_torch.parallel.distributed", "snarkjs_tpu_torch.parallel.sharded",
+    "snarkjs_tpu_torch.protocols.proof",
 ]
 
 
@@ -321,6 +323,19 @@ def test_no_module_reads_the_native_wasm_switch():
             if fn.endswith((".py", ".cpp", ".cu", ".cuh")):
                 with open(os.path.join(base, fn)) as f:
                     assert "SNARKJS_NO_NATIVE_WASM" not in f.read(), fn
+
+
+@pytest.mark.parametrize("name", ["SNARKJS_TPU_MXU_NTT", "JAX_COORDINATOR_ADDRESS"])
+def test_no_module_names_the_jax_switches(name):
+    """The JAX package picks its sharded NTT axis route by
+    SNARKJS_TPU_MXU_NTT and its cluster by JAX_COORDINATOR_ADDRESS; the
+    port routes by size and takes the rendezvous by argument."""
+    pkg = os.path.join(ROOT, "snarkjs_tpu_torch")
+    for base, _, files in os.walk(pkg):
+        for fn in files:
+            if fn.endswith((".py", ".cpp", ".cu", ".cuh")):
+                with open(os.path.join(base, fn)) as f:
+                    assert name not in f.read(), fn
 
 
 def test_importing_main_runs_nothing():

@@ -49,6 +49,40 @@ def _files(curve="bn128", ones=False, nc=NC):
     return data, wtns
 
 
+def _ragged_r1cs(prime: int, n8: int, nc: int, seed: int) -> bytes:
+    """A .r1cs whose linear combinations hold 0 to 4 entries each."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+    n_wires = 50
+    header = (struct.pack("<I", n8) + prime.to_bytes(n8, "little")
+              + struct.pack("<IIIIQI", n_wires, 1, 1, 2, n_wires, nc))
+    body = b""
+    for _ in range(3 * nc):
+        ne = int(rng.integers(0, 5))
+        body += struct.pack("<I", ne)
+        for _ in range(ne):
+            body += struct.pack("<I", int(rng.integers(0, n_wires)))
+            body += (int(rng.integers(0, 2**62)) ** 4 % prime).to_bytes(n8, "little")
+    sections = [(1, header), (2, body)]
+    return (b"r1cs" + struct.pack("<II", 1, len(sections))
+            + b"".join(struct.pack("<IQ", sid, len(p)) + p for sid, p in sections))
+
+
+@pytest.mark.parametrize("curve,n8,nc", [("bn128", 32, 300), ("bls12381", 32, 7),
+                                          ("bn128", 32, 0)])
+def test_read_r1cs_ragged_equals_jax(curve, n8, nc):
+    """The port's parse (every entry cut out at once) gives the JAX reader's
+    arrays on combinations of 0 to 4 entries, and on no constraint."""
+    data = _ragged_r1cs(P[curve], n8, nc, seed=nc)
+    jr, tr = jr1cs.read_r1cs(data), tr1cs.read_r1cs(data)
+    for k in ("m", "c", "s", "vals"):
+        a, b = getattr(tr, k), getattr(jr, k)
+        assert (a.dtype, a.shape) == (b.dtype, b.shape)
+        np.testing.assert_array_equal(a, b)
+    assert tr.n_constraints == jr.n_constraints == nc
+
+
 @pytest.mark.parametrize("curve,ones", [("bn128", False), ("bn128", True),
                                         ("bls12381", False)])
 def test_r1cs_tools_equal_jax(curve, ones):
