@@ -82,14 +82,22 @@ Phases (any failure exits non-zero before the last line):
  13. the powers-of-tau ceremony on bn128 at power 19: phase 10's secrets are
      the private keys that ChaCha(CEREMONY_SEED) gives `keypair.create_ptau_key`
      on a blank accumulator's first challenge, so one `contribute` to
-     `new_accumulator` must give phase 10's sections 2-6 byte for byte, and
-     `prepare_phase2` of that file its sections 12-15; `verify` (with the
+     `new_accumulator` must give phase 10's sections 2-6 byte for byte; the
+     rest of the phase runs on a contribution of power 14 with the same seed
+     (CEREMONY_CHAIN_POWER, cut from 19 for time: the group iNTT's blocks of
+     2^15 to 2^20 points run on the card only in the profiled stages below),
+     whose sections 2-6 must be phase 10's prefixes: `prepare_phase2` of it
+     gives phase 10's sections 12-15 as `prepared_equal` holds them (13-15
+     and 12's blocks up to 2^14 are prefixes, 12's last block follows by the
+     reference's zero-point identity); `verify` (with the
      Lagrange check, a fixed numpy Generator) accepts the prepared file and
      rejects a copy with two tauG1 points swapped; export_challenge ->
      challenge_contribute -> import_response -> beacon -> verify accepts; a
-     response with one flipped point byte is refused; truncate to power 12,
-     convert (section 12 equal) and export_json.  Launch counts set to 0 just
-     before contribute, prepare_phase2 and verify and read just after, beside
+     response with one flipped point byte is refused; truncate to power 10,
+     convert (held by `prepared_equal`, as prepare_phase2 of that file
+     would be, which is not run again for time) and export_json.
+     Launch counts set to 0 just before contribute, prepare_phase2 and
+     verify and read just after, beside
      the counts predicted from the code; one G1 and one G2 stage of the
      batched group iNTT timed and profiled alone; K-field, K-scan and
      K-mm-norm against their plain versions at the shapes the phase gave them
@@ -138,17 +146,59 @@ Phases (any failure exits non-zero before the last line):
      unsharded `ntt_mm` NTTs; the Groth16 (2^20), PLONK and FFLONK (2^18)
      proves over the mesh byte-equal to phases 5, 7 and 12; `contribute`
      over the mesh (sections 2-6 equal to phase 10's) and `prepare_phase2`
-     of the power-16 truncation of phase 10's file (PREPARE_POWER, cut from
-     19 for time; sections 13-15 and 12's blocks up to 2^16 are phase 10's
-     prefixes, 12's last block follows from phase 10's by the reference's
-     zero-point identity); `msm_sharded` and the legacy Pippenger at 2^12
+     of the power-8 truncation of phase 10's file (PREPARE_POWER, cut from
+     19 for time: the least power whose G1 and G2 blocks both reach the
+     sharded group iNTT, which must take exactly the blocks of 2^8 points
+     and more on every rank; held by `prepared_equal`);
+     `msm_sharded` and the legacy Pippenger at 2^12
      equal to `GpuMSM.run`.  Each step's launches counted on every rank
      (`launches_mesh`), every shape the ranks gave K-scan, K-mm-norm and
      K-field held against the plain version (but those held in the earlier
      phases); the CLI's `--devices 2` refused before any rank starts and
      `--devices 1` proving;
- 17. K-scan's registers, local memory and spills, the kernels line, then the
+ 17. the MSM keywords: phase 7's bn128 PLONK key proved once more with
+     msm_c=4, msm_cw=8 (launch counts set to 0 just before, read just
+     after: 9 K-scan over 32 windows, 20 K-mm-norm), the proof byte-equal to
+     phase 7's; K-scan held against its plain version at the cw = 8 shapes
+     it gave;
+ 18. the stored bls12-381 fixtures on the card, counted: the PLONK proof of
+     tiny_plonk_bls12381 byte-equal to the stored JAX proof, verified, a
+     tampered public rejected; Groth16 `setup_from_ptau` of the 3-constraint
+     chain from tiny_p4_bls12381.ptau byte-equal to
+     tiny3_bls12381_from_ptau.zkey, and a proof with it equal to the CPU
+     prove's, passing the pairing check, a tampered public rejected; the
+     bls12381_p3 ceremony chain of tests/_torch_ceremony.py (new ->
+     contribute -> challenge / response -> beacon -> prepare -> verify ->
+     truncate -> convert -> json) equal to the stored JAX run in every hash
+     and verify result; then K-field, K-scan and K-mm-norm against their
+     plain versions at every shape the phase gave them;
+ 19. phase 5's 2^20 Groth16 prove on bls12-381 (point sections tiled from
+     512 multiples of its G1 and 64 of its G2), with phase 5's checks and
+     launch counts (12 K-mm-norm, 5 K-scan, no K-mm; K-field logged beside
+     phase 5's count); WARM_BLS warm proves (median, spread, peak device
+     memory) and one under torch.profiler; K-field's times on bls12-381 Fr
+     and Fq at (NL, 2^20); K-scan against its plain version at the prove's
+     three shapes, K-mm-norm on bls12-381 Fr at 1024^3 and
+     K-field at every (field, elements) the prove gave it;
+ 20. phase 7's 2^18 PLONK prove on bls12-381 (SRS tiled from its 512
+     multiples of G1), with phase 7's checks and launch counts (9 K-scan,
+     20 K-mm-norm, no K-mm), WARM_BLS warm proves, then K-scan, K-mm-norm
+     and K-field against their plain versions
+     at every shape it gave them;
+ 21. K-scan's registers, local memory and spills, the kernels line, then the
      contract line.
+
+K-scan is held against its plain version on every lane of each bn128
+shape, and on the first BLS_HOLD_LANES lanes of each bls12-381 shape: the
+kernel runs the whole shape, a lane's scan reads only its own points, and
+the MSM closed forms, proofs and file bytes of each phase check every lane
+end to end.
+
+Depths cut for the time limit (no check dropped): phase 13's chain at
+CEREMONY_CHAIN_POWER, phase 16's prepare_phase2 at PREPARE_POWER (above);
+PAIRED_PROVES warm proves a route in phases 6 and 8, FFLONK_PROVES in phase
+12, WARM_BLS in phases 19 and 20; a shape held against the plain version in
+one phase is not held again in a later one.
 
 Every NTT stage of the proves goes through K-mm-norm, the one route of
 `ntt_mm._mm_stage`; K-mm is driven by phase 9.  The paired timings send a
@@ -207,8 +257,10 @@ INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
 IMAD_PER_CLK_SM = 64        # 32-bit integer multiply-add results/clk/SM, cc 9.0
 N_CONSTRAINTS = 600_000
 PLONK_CONSTRAINTS = 200_000  # + 1 public-input row: domain 2^18
-PAIRED_PROVES = 4            # warm proves per NTT route in a paired timing (7 before
-                             # phase 16: the script stays inside its time limit)
+PAIRED_PROVES = 2            # warm proves per NTT route in a paired timing
+BLS_HOLD_LANES = 1024        # K-scan's plain version runs on this many lanes of a
+                             # bls12-381 prove's shape (a lane reads only its own
+                             # points, and the MSMs' checks cover every lane)
 
 
 def log(msg):
@@ -653,20 +705,20 @@ def phase_fixture(dev):
         "tampered public rejected")
 
 
-def phase_plonk_fixture(dev):
-    with open(os.path.join(FIXTURES, "tiny_plonk_bn128_proof.json")) as f:
+def phase_plonk_fixture(dev, stem="tiny_plonk_bn128"):
+    with open(os.path.join(FIXTURES, f"{stem}_proof.json")) as f:
         want = json.load(f)
-    zk = os.path.join(FIXTURES, "tiny_plonk_bn128.zkey")
+    zk = os.path.join(FIXTURES, f"{stem}.zkey")
     proof, publics = plonk.prove_files(
-        zk, os.path.join(FIXTURES, "tiny_plonk_bn128.wtns"), b=want["b"], device=dev)
+        zk, os.path.join(FIXTURES, f"{stem}.wtns"), b=want["b"], device=dev)
     check(json.dumps([proof, publics]) ==
           json.dumps([want["proof"], want["publicSignals"]]),
-          "tiny PLONK fixture proof differs from the stored JAX proof")
+          f"{stem}: PLONK proof differs from the stored JAX proof")
     vk = plonk.export_verification_key(read_plonk_zkey(zk))
-    check(plonk.verify(vk, publics, proof), "tiny PLONK proof does not verify")
+    check(plonk.verify(vk, publics, proof), f"{stem}: PLONK proof does not verify")
     bad = [str(int(publics[0]) + 1)] + publics[1:]
-    check(not plonk.verify(vk, bad, proof), "tampered public accepted (PLONK)")
-    log("  tiny bn128 PLONK fixture: proof bytes == stored JAX proof; verified; "
+    check(not plonk.verify(vk, bad, proof), f"{stem}: tampered public accepted (PLONK)")
+    log(f"  {stem} PLONK fixture: proof bytes == stored JAX proof; verified; "
         "tampered public rejected")
 
 
@@ -677,8 +729,11 @@ def qap_inputs(zkey, witness, dev):
             idx(co["s"]), ftorch.to_tensor(witness.values, dev))
 
 
-def phase_full_prove(dev, tables):
-    cv = hc.BN254
+def phase_full_prove(dev, tables, cv=hc.BN254):
+    """The counted 2^20 Groth16 prove on `cv` and its checks.  Only bn128's
+    key, witness and proof are written for phase 16.  Returns the key, the
+    witness, the warm time, the launches, the shapes of the two digit
+    matmuls and K-scan, and the (field, elements) of every K-field launch."""
     fr = cv.fr
     t = time.perf_counter()
     zkey = synthetic_key(cv, tables)
@@ -692,12 +747,12 @@ def phase_full_prove(dev, tables):
     log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
 
     out = {}
-    with recorded_shapes() as shapes:
+    with recorded_shapes() as shapes, field_shapes() as fseen:
         reset_counts()
         prove_ms, (proof, publics) = wall_ms(
             lambda: groth16.prove(zkey, wit, r=r, s=s, device=dev, out=out))
         launches = counts()
-    log(f"  warm prove: {prove_ms:.1f} ms; launches {launches}")
+    log(f"  warm prove ({cv.name}): {prove_ms:.1f} ms; launches {launches}")
     log(f"  shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] > 0
           and launches["digit_mm_norm"] > 0 and launches["digit_mm"] == 0,
@@ -730,13 +785,15 @@ def phase_full_prove(dev, tables):
     check(json.dumps(host_proof) == json.dumps(proof),
           "proof differs from the one assembled from the closed forms")
     log("  proof == proof assembled on host from the closed forms")
-    t = time.perf_counter()
-    stash_bytes("groth16.zkey", groth16_setup.write_groth16_zkey(zkey))
-    stash_bytes("groth16.wtns", write_wtns(fr, wit.values))
-    stash_json("groth16.json", {"r": r, "s": s, "proof": proof, "publics": publics,
-                                "warm_ms": prove_ms})
-    log(f"  key, witness and proof written for phase 16 in {time.perf_counter() - t:.1f} s")
-    return zkey, wit, prove_ms, launches, shapes
+    if cv is hc.BN254:
+        t = time.perf_counter()
+        stash_bytes("groth16.zkey", groth16_setup.write_groth16_zkey(zkey))
+        stash_bytes("groth16.wtns", write_wtns(fr, wit.values))
+        stash_json("groth16.json", {"r": r, "s": s, "proof": proof, "publics": publics,
+                                    "warm_ms": prove_ms})
+        log(f"  key, witness and proof written for phase 16 in "
+            f"{time.perf_counter() - t:.1f} s")
+    return zkey, wit, prove_ms, launches, shapes, fseen
 
 
 def imad_per_s():
@@ -835,44 +892,54 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
     return parts, paired
 
 
-# what has been held against the plain version so far in the run: shapes of
-# K-scan, K-mm and K-mm-norm, (field, elements) of K-field
-HELD = {"msm_scan": set(), "digit_mm": set(), "digit_mm_norm": set(), "field_ops": set()}
+# what has been held against the plain version so far in the run, by
+# (kernel, field): shapes of K-scan (field: the curve's Fq), K-mm and
+# K-mm-norm (Fr), element counts of K-field
+HELD = collections.defaultdict(set)
 
 
 def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None):
     """K-scan against its plain version on the input `run` builds for these
     points and scalars (window digits of cw bits), which must have a shape
-    recorded in `seen`; its time and bound at that shape."""
+    recorded in `seen`; its time and bound at that shape.  The kernel runs at
+    the whole shape and is held against the plain version on every lane, on
+    bls12-381 on its first BLS_HOLD_LANES lanes (a lane's scan reads only its
+    own points); `plain_ms` is the plain version's time on the whole shape,
+    and null where it ran on fewer lanes (`plain_lanes_ms`, `plain_lanes`)."""
     m = msm_gpu.get_msm(cv.name, group, cw=cw)
     xyT = m.scan_input(*pts, scal, lanes=lanes)
     shape = tuple(xyT.shape)
     check(shape in seen, f"K-scan {group} input {shape} is no shape of the {path} prove")
     ms = cuda_ms(lambda: msm_gpu.scan(cv.fq, m.b, m.ext, xyT), 3)
     got = msm_gpu.scan(cv.fq, m.b, m.ext, xyT)
-    plain_ms, want = wall_ms(lambda: msm_gpu.scan_plain(cv.fq, m.b, m.ext, xyT))
-    e = max_abs_err(got, want)
-    check(e == 0, f"K-scan {group} {shape} differs from plain ({e})")
+    held = shape[3] if cv is hc.BN254 else min(BLS_HOLD_LANES, shape[3])
+    part = xyT if held == shape[3] else xyT[..., :held].contiguous()
+    plain_ms, want = wall_ms(lambda: msm_gpu.scan_plain(cv.fq, m.b, m.ext, part))
+    e = max_abs_err(got[..., :held], want)
+    check(e == 0, f"K-scan {cv.name} {group} {shape} differs from plain on {held} lanes ({e})")
     errs["msm_scan"] = max(errs["msm_scan"], e)
-    HELD["msm_scan"].add(shape)
+    HELD[("msm_scan", cv.fq.name)].add(shape)
     nw, C, nin, RL = shape
     nbytes = xyT.numel() * 4 + got.numel() * 4
     wide = nw * C * RL * madd_products(m.ext) * mont_mul_imads(cv.fq.nl // 2)
     bms, by = bound(nbytes, wide, rate32)
-    log(f"  K-scan {group} {shape} x{seen[shape]} ({path}) == plain: {ms:.3f} ms  "
-        f"plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by})")
-    return {"path": path, "group": group, "shape": list(shape), "launches": seen[shape],
-            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by}
+    log(f"  K-scan {cv.name} {group} {shape} x{seen[shape]} ({path}) == plain on {held} "
+        f"lanes: {ms:.3f} ms  plain {plain_ms:.0f} ms ({held} lanes)  bound {bms:.3f} ms ({by})")
+    out = {"path": path, "curve": cv.name, "group": group, "shape": list(shape),
+           "launches": seen[shape], "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by}
+    if held < shape[3]:
+        out.update(plain_ms=None, plain_lanes_ms=plain_ms, plain_lanes=held)
+    return out
 
 
-def mm_case(dev, gen, kernel, shape, launches, path, errs):
-    """K-mm or K-mm-norm (bn254 Fr) against its plain version at one stage
+def mm_case(dev, gen, kernel, shape, launches, path, errs, field="bn254_fr"):
+    """K-mm or K-mm-norm (on `field`) against its plain version at one stage
     shape (r, q, m), with its time and bound there.  Compared in both operand
     layouts; timed as the NTT calls it, with the data digits y-major."""
     r, q, m = shape
-    fp = ftorch.get_ctx("bn254_fr").fp
-    W8, D8 = mm_inputs(dev, gen, "bn254_fr", r.bit_length() - 1, r, q, m)
+    fp = ftorch.get_ctx(field).fp
+    W8, D8 = mm_inputs(dev, gen, field, r.bit_length() - 1, r, q, m)
     DT = ntt_mm._y_major(D8)
     if kernel == "digit_mm_norm":
         fn, jax_layout, plain = (lambda: ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True),
@@ -884,25 +951,24 @@ def mm_case(dev, gen, kernel, shape, launches, path, errs):
                                  lambda: ntt_mm.digit_mm_plain(W8, D8))
     plain_ms, want = wall_ms(plain)
     e = max(max_abs_err(fn(), want), max_abs_err(jax_layout(), want))
-    check(e == 0, f"{kernel} {shape} differs from plain ({e})")
+    check(e == 0, f"{kernel} {field} {shape} differs from plain ({e})")
     errs[kernel] = max(errs[kernel], e)
-    HELD[kernel].add(tuple(shape))
+    HELD[(kernel, field)].add(tuple(shape))
     ms = cuda_ms(fn, 5)
     nd = W8.shape[0]
     bms, by = bound(W8.numel() + D8.numel() + want.numel() * 4,
                     2 * nd * nd * r * q * m, INT8_OPS_PER_S)
-    log(f"  {kernel} {shape} x{launches} ({path}) == plain: {ms:.3f} ms  "
+    log(f"  {kernel} {field} {shape} x{launches} ({path}) == plain: {ms:.3f} ms  "
         f"plain {plain_ms:.1f} ms  bound {bms:.3f} ms ({by})")
-    return {"path": path, "shape": list(shape), "launches": launches, "max_abs_err": e,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    return {"path": path, "field": field, "shape": list(shape), "launches": launches,
+            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
-def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
-    cv = hc.BN254
-    entries = {}
-
-    # K-field at (16, 2^20), the NTT / coset shape
-    ctx = ftorch.get_ctx("bn254_fr")
+def field_times(dev, gen, name, rate32):
+    """K-field's four ops on `name` at (NL, 2^20): CUDA-event time, device
+    time a launch (torch.profiler), the plain version's time and the bound.
+    Returns mont_mul's entry with every op's under "ops"."""
+    ctx = ftorch.get_ctx(name)
     a = rand_field(ctx.fp, 1 << 20, dev, gen)
     b = rand_field(ctx.fp, 1 << 20, dev, gen)
     n32 = ctx.nl // 2
@@ -920,10 +986,17 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
             nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
         ops[op] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms,
                    "bound_by": by}
-        log(f"  K-field {op} (16, 2^20): {ms:.4f} ms (CUDA events over 20 launches), "
-            f"device {dev_ms} ms a launch (torch.profiler)  plain {plain_ms:.2f} ms  "
+        log(f"  K-field {name} {op} ({ctx.nl}, 2^20): {ms:.4f} ms (CUDA events over 20 "
+            f"launches), device {dev_ms} ms a launch (torch.profiler)  plain {plain_ms:.2f} ms  "
             f"bound {bms:.4f} ms ({by})")
-    entries["field_ops"] = dict(ops["mont_mul"], ops=ops)
+    return dict(ops["mont_mul"], field=name, ops=ops)
+
+
+def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
+    cv = hc.BN254
+    ctx = ftorch.get_ctx("bn254_fr")
+    # K-field at (16, 2^20), the NTT / coset shape
+    entries = {"field_ops": field_times(dev, gen, "bn254_fr", rate32)}
 
     # K-scan at every shape the prove gave it: the A, B1 and C inputs share
     # one (A's is taken), then H's (G1) and B2's (G2)
@@ -989,8 +1062,8 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
             max_abs_err(ntt_mm.digit_mm_norm(fp, W8, D8), wantn))
     check(e == 0, f"K-mm-norm differs from plain or from _int_mm + normalize ({e})")
     errs["digit_mm_norm"] = max(errs["digit_mm_norm"], e)
-    HELD["digit_mm"].add(BIG)
-    HELD["digit_mm_norm"].add(BIG)
+    HELD[("digit_mm", "bn254_fr")].add(BIG)
+    HELD[("digit_mm_norm", "bn254_fr")].add(BIG)
     ms_n = cuda_ms(lambda: ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True), 5)
     unfused_ms = cuda_ms(
         lambda: ntt_mm._normalize_cols(fp, ntt_mm.digit_mm(W8, DT, y_major=True)), 5)
@@ -1060,7 +1133,8 @@ def plonk_synthetic_key(cv, tables, r1cs, dev):
     zk = read_plonk_zkey(zbytes)
     check(zk.domain_size == domain and zk.ptau[2].shape[0] == M,
           "synthetic PLONK key has an unexpected domain or SRS length")
-    stash_bytes("plonk.zkey", zbytes)
+    if cv is hc.BN254:          # phase 16's ranks read bn128's key
+        stash_bytes("plonk.zkey", zbytes)
     return zk, len(zbytes)
 
 
@@ -1134,8 +1208,9 @@ def check_plonk_proof(cv, zk, proof, publics, out, dev):
         "alpha^2 * (z - 1) * L_1 holds at xi on host bigints")
 
 
-def phase_plonk_prove(dev, tables):
-    cv = hc.BN254
+def phase_plonk_prove(dev, tables, cv=hc.BN254):
+    """The counted 2^18 PLONK prove on `cv` and its checks (bn128's witness
+    and proof written for phase 16)."""
     fr = cv.fr
     t = time.perf_counter()
     r1cs, wit = plonk_circuit(fr)
@@ -1150,7 +1225,7 @@ def phase_plonk_prove(dev, tables):
     torch.cuda.synchronize()
     log(f"  first prove (uploads the key): {time.perf_counter() - t:.3f} s")
     torch.cuda.reset_peak_memory_stats()
-    with recorded_shapes() as shapes:
+    with recorded_shapes() as shapes, field_shapes() as fseen:
         reset_counts()
         prove_ms, (proof, publics) = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev))
         launches = counts()
@@ -1160,28 +1235,32 @@ def phase_plonk_prove(dev, tables):
     proof2, publics2, out = plonk._prove_rounds(zk, wit, b, None, dev)
     check(json.dumps([proof2, publics2]) == json.dumps([proof, publics]),
           "the rounds function and `prove` give different PLONK proofs")
-    log(f"  warm prove: {prove_ms:.1f} ms; launches {launches}; "
+    log(f"  warm prove ({cv.name}): {prove_ms:.1f} ms; launches {launches}; "
         f"peak device memory {peak / 2**30:.2f} GiB")
     log(f"  shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] == 9
           and launches["digit_mm_norm"] == 20 and launches["digit_mm"] == 0,
           "PLONK path: expected 9 K-scan, 20 K-mm-norm and no K-mm launches")
     check_plonk_proof(cv, zk, proof, publics, out, dev)
-    stash_bytes("plonk.wtns", write_wtns(fr, wit.values))
-    stash_json("plonk.json", {"b": b, "proof": proof, "publics": publics, "warm_ms": prove_ms})
-    return zk, wit, b, prove_ms, launches, shapes, out["A"]
+    if cv is hc.BN254:
+        stash_bytes("plonk.wtns", write_wtns(fr, wit.values))
+        stash_json("plonk.json", {"b": b, "proof": proof, "publics": publics,
+                                  "warm_ms": prove_ms})
+    return {"zk": zk, "wit": wit, "b": b, "ms": prove_ms, "launches": launches,
+            "shapes": shapes, "fields": fseen, "pol_a": out["A"], "proof": [proof, publics],
+            "peak_gib": peak / 2**30}
 
 
 STAGE_SHAPES = {(1024, 1024, 1024): 12, (256, 256, 1024): 4, (1024, 1024, 256): 4}
 BIG = (1024, 1024, 1024)
 
 
-def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32):
+def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32, cv=hc.BN254,
+                       path="plonk"):
     """K-scan and K-mm-norm against their plain versions at every shape the
-    counted PLONK prove called them with, each with its time and bound there.
-    The 1024^3 stage has been held and timed with the Groth16 shapes; its
-    entry is completed there."""
-    cv = hc.BN254
+    counted PLONK prove called them with, each with its time and bound there
+    (but the stages held earlier: on bn128 the 1024^3 stage has been held and
+    timed with the Groth16 shapes, and its entry is completed there)."""
     ctx = ftorch.get_ctx(cv.fr.name)
     seen = shapes["msm_scan"]
     check(len(seen) == 1 and sum(seen.values()) == 9,
@@ -1189,13 +1268,11 @@ def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32):
     M = zk.ptau[2].shape[0]
     scal = fops.pad_to(ftorch.from_mont(ctx, pol_a.contiguous()), M)
     scan = scan_case(cv, "g1", plonk._dev_key(zk, dev, M)["ptau"], scal, seen,
-                     "plonk", rate32, errs)
+                     path, rate32, errs)
     norm = shapes["digit_mm_norm"]
     check(dict(norm) == STAGE_SHAPES,
           f"the PLONK prove's 20 NTT stage shapes are not the expected ones: {dict(norm)}")
-    norms = [mm_case(dev, gen, "digit_mm_norm", sh, n, "plonk", errs)
-             for sh, n in sorted(norm.items()) if sh != BIG]
-    return scan, norms
+    return scan, norm_cases(dev, gen, norm, path, errs, cv.fr.name)
 
 
 def phase_ntt_path(dev, gen, errs):
@@ -1489,7 +1566,7 @@ def phase_setup(dev, gen, errs, rate32):
 
 FFLONK_TAU = 0x5A17_C0DE_93B1_4E27_D6F8_0A35   # the 2^18 FFLONK key's secret
 FFLONK_PTAU_CONSTRAINTS = 60_000               # domain 2^16: 589,842 SRS points
-FFLONK_PROVES = 5                              # warm proves for the median
+FFLONK_PROVES = 3                              # warm proves for the median
 
 
 def srs_spot_check(cv, zk, tau, idxs):
@@ -1662,8 +1739,13 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
 RESPONSE_SEED = [0xC0FF_EE01, 0xC0FF_EE02, 0xC0FF_EE03, 0xC0FF_EE04, 5, 6, 7, 8]
 BEACON_HASH = bytes.fromhex("5a" * 32)
 VERIFY_SEED = 1913
-CEREMONY_SMALL_POWER = 12   # convert and export_json: the JSON stays small
-PREPARE_POWER = 16          # prepare_phase2 over the mesh in phase 16 (cut from 19 for time)
+CEREMONY_SMALL_POWER = 10   # convert and export_json: the JSON stays small
+CEREMONY_CHAIN_POWER = 14   # phase 13's prepare_phase2, verify and challenge / response
+                            # chain run on a contribution of this power (the script's
+                            # time limit)
+PREPARE_POWER = 8           # prepare_phase2 over the mesh in phase 16: the least power
+                            # whose G1 and G2 blocks both reach the sharded group iNTT
+                            # ((4 * MESH_RANKS)^2 = 2^8 points)
 STAGE_PROFILED = 10         # the group iNTT stage timed alone and profiled
 
 
@@ -1688,10 +1770,11 @@ def field_cases(dev, gen, errs, sizes, what, field="bn254_fq"):
     versions at the given element counts (shapes a path gave the kernel) but
     those held earlier in the run."""
     ctx = ftorch.get_ctx(field)
-    again = [n for n in sizes if (field, n) in HELD["field_ops"]]
-    sizes = [n for n in sizes if (field, n) not in HELD["field_ops"]]
+    done = HELD[("field_ops", field)]
+    again = [n for n in sizes if n in done]
+    sizes = [n for n in sizes if n not in done]
     for n in sizes:
-        HELD["field_ops"].add((field, n))
+        done.add(n)
         a, b = rand_field(ctx.fp, n, dev, gen), rand_field(ctx.fp, n, dev, gen).flip(1).contiguous()
         for op, fn in (("add", ftorch.add), ("sub", ftorch.sub), ("mont_mul", ftorch.mont_mul),
                        ("neg", lambda ctx, a, b: ftorch.neg(ctx, a))):
@@ -1705,20 +1788,21 @@ def field_cases(dev, gen, errs, sizes, what, field="bn254_fq"):
         f"{len(again)} sizes held earlier in the run")
 
 
-def held_before(kernel, seen, path):
+def held_before(kernel, seen, path, field="bn254_fr"):
     """The shapes of `seen` that no earlier phase held against the plain
     version (logged: those that one did)."""
-    again = sorted(set(seen) & HELD[kernel])
+    done = HELD[(kernel, field)]
+    again = sorted(set(seen) & done)
     if again:
-        log(f"  {kernel} {again} ({path}): held against plain earlier in this run")
-    return sorted(set(seen) - HELD[kernel])
+        log(f"  {kernel} {field} {again} ({path}): held against plain earlier in this run")
+    return sorted(set(seen) - done)
 
 
-def norm_cases(dev, gen, seen, path, errs):
-    """K-mm-norm against its plain version at every shape of `seen` ({shape:
-    launches}) not held earlier in the run."""
-    return [mm_case(dev, gen, "digit_mm_norm", sh, seen[sh], path, errs)
-            for sh in held_before("digit_mm_norm", seen, path)]
+def norm_cases(dev, gen, seen, path, errs, field="bn254_fr"):
+    """K-mm-norm on `field` against its plain version at every shape of
+    `seen` ({shape: launches}) not held earlier in the run."""
+    return [mm_case(dev, gen, "digit_mm_norm", sh, seen[sh], path, errs, field)
+            for sh in held_before("digit_mm_norm", seen, path, field)]
 
 
 def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
@@ -1728,7 +1812,7 @@ def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
     the recorded shape."""
     out = []
     dev = pts["g1"][0].device
-    for shape in held_before("msm_scan", seen, path):
+    for shape in held_before("msm_scan", seen, path, cv.fq.name):
         nw, C, nin, RL = shape
         group = "g1" if nin == cv.fq.nl + 1 else "g2"
         cw = 16 if nw <= cv.fq.nl else 8
@@ -1775,11 +1859,13 @@ def blocks_stage_busy(cv, g2, blocks, dev, what):
 def phase_ceremony(dev, gen, errs, rate32, ptau):
     """The powers-of-tau ceremony on bn128 at power 19 (SETUP_POWER): one
     `contribute` to a blank accumulator with ChaCha(CEREMONY_SEED) gives
-    phase 10's sections 2-6; `prepare_phase2` of that file gives its sections
-    12-15; `verify` accepts it and rejects a copy with two tauG1 points
-    swapped; export_challenge -> challenge_contribute -> import_response ->
-    beacon -> verify; a response with a flipped point byte is refused;
-    convert and export_json at power 12.  Launch counts set to 0 just before
+    phase 10's sections 2-6.  One at CEREMONY_CHAIN_POWER with the same seed
+    gives their prefixes; `prepare_phase2` of that file the sections 12-15
+    that `prepared_equal` holds against phase 10's; `verify` accepts it and
+    rejects a copy with two tauG1 points swapped; export_challenge ->
+    challenge_contribute -> import_response -> beacon -> verify; a response
+    with a flipped point byte is refused; convert and export_json at
+    CEREMONY_SMALL_POWER.  Launch counts set to 0 just before
     contribute, prepare_phase2 and verify and read just after; one G1 and one
     G2 stage of the group iNTT timed and profiled alone; K-field, K-scan and
     K-mm-norm against their plain versions at the shapes the phase gave
@@ -1810,17 +1896,33 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
         f"{pred['contribute']} in the two double-and-adds, plus the powers, the affine "
         f"forms and the codecs); response hash {rh1[:8].hex()}...")
 
+    # the rest runs on a contribution of CEREMONY_CHAIN_POWER with the same
+    # seed: the same secrets, so its sections 2-6 are phase 10's prefixes (a
+    # truncation of c1 would not do: its contribution hashes belong to power
+    # 19, and export_challenge refuses it)
+    acc = ptau_ops.new_accumulator(cv, CEREMONY_CHAIN_POWER)
+    steps["contribute_chain_power"], (cs, _) = wall_ms(lambda: ptau_ops.contribute(
+        acc, name="chip_smoke", rng=ChaCha(CEREMONY_SEED), device=dev))
+    del acc
+    for sid in (2, 3, 4, 5, 6):
+        check(bytes(cs.sections[sid]) == bytes(ptau.sections[sid][:len(cs.sections[sid])]),
+              f"contribute at power {CEREMONY_CHAIN_POWER}: section {sid} is no prefix of "
+              "phase 10's")
+    pred_prep = ceremony_predicted(CEREMONY_CHAIN_POWER)
     reset_counts()
-    steps["prepare_phase2"], prep = wall_ms(lambda: ptau_ops.prepare_phase2(c1, device=dev))
+    steps["prepare_phase2"], prep = wall_ms(lambda: ptau_ops.prepare_phase2(cs, device=dev))
     launches["prepare_phase2"] = counts()
-    for sid in (12, 13, 14, 15):
-        check(bytes(prep.sections[sid]) == bytes(ptau.sections[sid]),
-              f"prepare_phase2: section {sid} differs from phase 10's .ptau")
-    log(f"  prepare_phase2 at power {power}: {steps['prepare_phase2']:.0f} ms, sections 12-15 "
-        f"== phase 10's .ptau; K-field launches {launches['prepare_phase2']['field_ops']} "
-        f"(predicted {pred['prepare_phase2']} in the stages' double-and-adds, plus the "
-        f"butterflies and the affine forms; the JAX structure: about "
-        f"{pred['prepare_phase2_jax_structure']})")
+    eq = prepared_equal(cv, prep, ptau, dev)
+    check(all(eq.values()), f"prepare_phase2 at power {CEREMONY_CHAIN_POWER}: sections "
+                            f"12-15 differ from phase 10's .ptau: {eq}")
+    log(f"  contribute at power {CEREMONY_CHAIN_POWER}: {steps['contribute_chain_power']:.0f} "
+        f"ms, sections 2-6 == phase 10's prefixes; its prepare_phase2: "
+        f"{steps['prepare_phase2']:.0f} ms, sections 13-15 and 12's blocks up to "
+        f"2^{CEREMONY_CHAIN_POWER} == phase 10's prefixes, 12's last block == phase 10's "
+        f"by the zero-point identity; K-field launches "
+        f"{launches['prepare_phase2']['field_ops']} (predicted {pred_prep['prepare_phase2']} in "
+        f"the stages' double-and-adds, plus the butterflies and the affine forms; the JAX "
+        f"structure: about {pred_prep['prepare_phase2_jax_structure']})")
 
     with recorded_shapes() as v_shapes:
         reset_counts()
@@ -1840,11 +1942,11 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
         f"{launches['verify']}; two tauG1 points swapped: False in "
         f"{steps['verify_tampered']:.0f} ms")
 
-    steps["export_challenge"], ch = wall_ms(lambda: ptau_ops.export_challenge(c1, device=dev))
+    steps["export_challenge"], ch = wall_ms(lambda: ptau_ops.export_challenge(cs, device=dev))
     steps["challenge_contribute"], resp = wall_ms(lambda: ptau_ops.challenge_contribute(
         cv, ch, rng=ChaCha(RESPONSE_SEED), device=dev))
     steps["import_response"], c2 = wall_ms(lambda: ptau_ops.import_response(
-        c1, resp, name="response", device=dev))
+        cs, resp, name="response", device=dev))
     steps["beacon"], (c3, _) = wall_ms(lambda: ptau_ops.beacon(c2, BEACON_HASH, 10, device=dev))
     steps["verify_chain"], ok = wall_ms(lambda: ptau_ops.verify(
         c3, rng=np.random.default_rng(VERIFY_SEED), device=dev))
@@ -1853,7 +1955,7 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
     flipped[64 + 2 * cv.fq.n8 + 5] ^= 1
     t = time.perf_counter()
     try:
-        c2b = ptau_ops.import_response(c1, bytes(flipped), name="flipped", device=dev)
+        c2b = ptau_ops.import_response(cs, bytes(flipped), name="flipped", device=dev)
         refused = "verify False"
         check(not ptau_ops.verify(c2b, rng=np.random.default_rng(VERIFY_SEED), device=dev),
               "a response with a flipped point byte verifies")
@@ -1864,25 +1966,27 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
         f"challenge_contribute {steps['challenge_contribute']:.0f} ms, import_response "
         f"{steps['import_response']:.0f} ms, beacon {steps['beacon']:.0f} ms, verify "
         f"{steps['verify_chain']:.0f} ms: True; flipped response byte: {refused}")
-    del ch, resp, c2, c3, flipped
+    del ch, resp, cs, c2, c3, flipped
 
-    # at power 12: the truncated file's top tauG1 block holds one more tau
-    # point than a power-12 preparePhase2 takes, so convert is held against
-    # prepare_phase2 of the truncated file
+    # the truncated file's top tauG1 block holds one more tau point than a
+    # preparePhase2 of its power takes, so convert's section 12 is what
+    # prepare_phase2 of the truncated file gives, which `prepared_equal`
+    # holds against phase 10's sections (that preparePhase2 is not run again,
+    # for time)
     small = ptau_ops.truncate(prep, CEREMONY_SMALL_POWER)
-    steps["convert_p12"], conv = wall_ms(lambda: ptau_ops.convert(small, device=dev))
-    check(bytes(conv.sections[12]) == bytes(ptau_ops.prepare_phase2(small, device=dev)
-                                            .sections[12]),
-          "convert's section 12 differs from prepare_phase2's")
+    steps["convert_small"], conv = wall_ms(lambda: ptau_ops.convert(small, device=dev))
+    eq = prepared_equal(cv, conv, ptau, dev)
+    check(all(eq.values()), f"convert at power {CEREMONY_SMALL_POWER}: sections 12-15 differ "
+                            f"from phase 10's .ptau: {eq}")
     t = time.perf_counter()
     js = ptau_ops.export_json(conv)
-    steps["export_json_p12"] = (time.perf_counter() - t) * 1e3
+    steps["export_json_small"] = (time.perf_counter() - t) * 1e3
     n12 = 1 << CEREMONY_SMALL_POWER
     check(len(js["tauG1"]) == 2 * n12 - 1 and len(js["lTauG1"]) == CEREMONY_SMALL_POWER + 2
           and js["tauG1"][1] == [str(v) for v in c1.contributions[0].tau_g1] + ["1"],
           "export_json does not hold the file's points")
-    log(f"  power {CEREMONY_SMALL_POWER}: convert {steps['convert_p12']:.0f} ms (section 12 == "
-        f"prepare_phase2's), export_json {steps['export_json_p12']:.0f} ms")
+    log(f"  power {CEREMONY_SMALL_POWER}: convert {steps['convert_small']:.0f} ms (sections 12-15 "
+        f"== phase 10's by `prepared_equal`), export_json {steps['export_json_small']:.0f} ms")
     peak = torch.cuda.max_memory_allocated() / 2**30
     del small, conv, js
     torch.cuda.empty_cache()
@@ -1892,7 +1996,7 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
     # the kernels at the shapes the phase gave them
     field_cases(dev, gen, errs, ((1 << 21) - 1, (1 << 19) + 1), "the ceremony's batches")
     fq = cv.fq
-    n1, n2 = min(1 << 16, (2 << power) - 1), min(1 << 15, 1 << power)
+    n1, n2 = min(1 << 16, (2 << prep.power) - 1), min(1 << 15, 1 << prep.power)
     x1, y1, _ = pcodec.g1_lem_from_bytes(fq, bytes(prep.sections[2][:n1 * sz1]), n1)
     x2, y2, _ = pcodec.g2_lem_from_bytes(fq, bytes(prep.sections[3][:n2 * 2 * sz1]), n2)
     put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) else ftorch.to_tensor(a, dev)
@@ -1906,7 +2010,10 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
     total = time.perf_counter() - t_phase
     log(f"  ceremony phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
     log(f"  ceremony peak device memory {peak:.2f} GiB; phase total {total:.1f} s")
-    return {"power": power, "steps_ms": steps, "launches": launches, "predicted": pred,
+    pred["prepare_phase2"] = pred_prep["prepare_phase2"]
+    pred["prepare_phase2_jax_structure"] = pred_prep["prepare_phase2_jax_structure"]
+    return {"power": power, "chain_power": CEREMONY_CHAIN_POWER, "steps_ms": steps,
+            "launches": launches, "predicted": pred,
             "stages": stages, "peak_gib": peak, "total_s": total, "scans": scans,
             "norms": norms}
 
@@ -2403,11 +2510,11 @@ def phase_cli(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit, inprocess_ms):
     scans = ceremony_scans(cv, seen["msm_scan"], {"g1": (put(x1), put(y1)),
                                                   "g2": (put(x2), put(y2))},
                            gen, rate32, errs, path="cli")
-    check(set(seen["msm_scan"]) <= HELD["msm_scan"],
+    check(set(seen["msm_scan"]) <= HELD[("msm_scan", cv.fq.name)],
           f"a K-scan shape of the CLI steps was not compared: {sorted(seen['msm_scan'])}")
     check(not seen["digit_mm"], "a CLI step launched K-mm")
     norms = norm_cases(dev, gen, seen["digit_mm_norm"], "cli", errs)
-    check(set(seen["digit_mm_norm"]) <= HELD["digit_mm_norm"],
+    check(set(seen["digit_mm_norm"]) <= HELD[("digit_mm_norm", cv.fr.name)],
           "a K-mm-norm shape of the CLI steps was not compared")
     steps["kernels vs plain at the CLI shapes"] = (time.perf_counter() - t) * 1e3
     total = time.perf_counter() - t_phase
@@ -2559,9 +2666,9 @@ def lagrange_block_want(cv, lem_lagrange, lem_tau, p, dev):
 
 def prepared_equal(cv, prep, ptau, dev):
     """Sections 12-15 of `prep` (prepare_phase2 at a power p below phase
-    10's, which phase 13 holds equal to the unsharded prepare_phase2) against
-    phase 10's prepared file: 13-15, and 12's blocks up to 2^p, are its
-    prefixes; 12's last block is `lagrange_block_want`."""
+    10's) against phase 10's prepared file, built from the secrets' scalars:
+    13-15, and 12's blocks up to 2^p, are its prefixes; 12's last block is
+    `lagrange_block_want`."""
     sz = 2 * cv.fq.n8
     p = prep.power
     head = (2 * (1 << p) - 1) * sz
@@ -2572,6 +2679,37 @@ def prepared_equal(cv, prep, ptau, dev):
     eq["12 last block"] = (bytes(prep.sections[12][head:])
                            == lagrange_block_want(cv, last, ptau.sections[2], p, dev))
     return eq
+
+
+@contextlib.contextmanager
+def sharded_blocks():
+    """Counts, by group, the blocks that go through the sharded four-step
+    group iNTT (the column blocks of `sharded.group_intt_blocks`) while the
+    body runs."""
+    from snarkjs_tpu_torch.parallel import sharded
+
+    n = collections.Counter(g1=0, g2=0)
+    inner = sharded.group_intt_blocks
+
+    def counted(mesh, cv, g2, cols, small, device):
+        n["g2" if g2 else "g1"] += len(cols)
+        return inner(mesh, cv, g2, cols, small, device)
+
+    sharded.group_intt_blocks = counted
+    try:
+        yield n
+    finally:
+        sharded.group_intt_blocks = inner
+
+
+def sharded_blocks_want(power, ndev):
+    """The blocks of prepare_phase2 at `power` over `ndev` ranks that reach
+    the sharded group iNTT (2^k >= (4 * ndev)^2 points): tauG1's blocks
+    k = 0 .. power + 1, alphaTauG1's and betaTauG1's k = 0 .. power on G1,
+    tauG2's k = 0 .. power on G2."""
+    lo = ((4 * ndev) ** 2).bit_length() - 1
+    top = lambda kmax: max(0, kmax - lo + 1)
+    return {"g1": top(power + 1) + 2 * top(power), "g2": top(power)}
 
 
 def mesh_gloo_rank(rank, stash_dir):
@@ -2633,15 +2771,16 @@ def mesh_gloo_rank(rank, stash_dir):
     rec["equal"]["contribute"] = all(bytes(c1.sections[sid]) == bytes(ptau.sections[sid])
                                      for sid in range(2, 7))
     del c1, acc
-    p16 = ptau_ops.truncate(ptau, PREPARE_POWER)
-    prep = mesh_step(rec, f"prepare_phase2 power {PREPARE_POWER}",
-                     lambda: ptau_ops.prepare_phase2(p16, device=dev, mesh=mesh))
+    small = ptau_ops.truncate(ptau, PREPARE_POWER)
+    with sharded_blocks() as rec["sharded_blocks"]:
+        prep = mesh_step(rec, f"prepare_phase2 power {PREPARE_POWER}",
+                         lambda: ptau_ops.prepare_phase2(small, device=dev, mesh=mesh))
     rec["digest"]["prepare_phase2"] = hashlib.sha256(
         b"".join(bytes(prep.sections[sid]) for sid in (12, 13, 14, 15))).hexdigest()
     if rank == 0:          # the others by the digest
         rec["equal"][f"prepare_phase2 power {PREPARE_POWER}"] = prepared_equal(cv, prep, ptau,
                                                                               dev)
-    del prep, p16
+    del prep, small
 
     # msm_sharded and the legacy Pippenger against GpuMSM.run
     n = MESH_MSM_POINTS
@@ -2706,6 +2845,13 @@ def phase_mesh(dev, gen, errs, rate32, ptau):
     for k in ("ntt 2^24", "ntt 2^20", "prepare_phase2"):
         check(len({json.dumps(r["digest"].get(k)) for r in ranks}) == 1,
               f"the ranks' {k} results differ")
+    want = sharded_blocks_want(PREPARE_POWER, MESH_RANKS)
+    got = [dict(r["sharded_blocks"]) for r in ranks]
+    check(all(g == want for g in got) and want["g1"] and want["g2"],
+          f"prepare_phase2 over the mesh sent {got} blocks through the sharded group iNTT, "
+          f"not {want} on every rank")
+    log(f"  prepare_phase2 power {PREPARE_POWER}: blocks through the sharded group iNTT on "
+        f"every rank {want}")
     for r in ranks[1:]:
         check(all((all(v.values()) if isinstance(v, dict) else v)
                   for v in r["equal"].values()), "a rank's result differs")
@@ -2745,7 +2891,8 @@ def phase_mesh(dev, gen, errs, rate32, ptau):
                            gen, rate32, errs, path="mesh")
     norms = norm_cases(dev, gen, seen["digit_mm_norm"], "mesh", errs)
     check(not seen["digit_mm"], "a mesh step launched K-mm")
-    check(all(set(seen[k]) <= HELD[k] for k in ("msm_scan", "digit_mm_norm")),
+    check(set(seen["msm_scan"]) <= HELD[("msm_scan", cv.fq.name)]
+          and set(seen["digit_mm_norm"]) <= HELD[("digit_mm_norm", cv.fr.name)],
           "a shape of the mesh ranks was not held against plain")
     out["ms"]["kernels vs plain at the mesh shapes"] = (time.perf_counter() - t) * 1e3
 
@@ -2799,6 +2946,192 @@ def verify_both(step, proto, P, vk, proofs):
         out, _ = step(f"{proto} verify {proof} (tampered public)",
                       [proto, "verify", P(vk), P("tampered.json"), P(proof)], expect_rc=1)
         check(out.strip() == "INVALID proof", f"{proto} verify (tampered) printed {out!r}")
+
+
+# ------------------------------------------- the MSM keywords and bls12-381
+
+WARM_BLS = 3        # warm proves for a bls12-381 median
+
+
+def phase_plonk_cw8(dev, gen, errs, rate32, pk):
+    """Phase 17: phase 7's bn128 PLONK key proved once more with msm_c=4,
+    msm_cw=8, counted: the proof byte-equal to phase 7's, then K-scan held
+    against its plain version at the cw = 8 shapes it gave."""
+    cv = hc.BN254
+    zk, wit, b = pk["zk"], pk["wit"], pk["b"]
+    with recorded_shapes() as shapes:
+        reset_counts()
+        ms, got = wall_ms(lambda: plonk.prove(zk, wit, b=b, device=dev, msm_c=4, msm_cw=8))
+        launches = counts()
+    log(f"  bn128 PLONK 2^18 with msm_c=4, msm_cw=8: {ms:.1f} ms; launches {launches}")
+    log(f"  shapes: {shapes_json(shapes)}")
+    check(json.dumps(list(got)) == json.dumps(pk["proof"]),
+          "the PLONK proof with msm_c=4, msm_cw=8 differs from phase 7's")
+    seen = shapes["msm_scan"]
+    check(launches["msm_scan"] == 9 and launches["digit_mm_norm"] == 20
+          and launches["digit_mm"] == 0 and set(sh[0] for sh in seen) == {32},
+          "PLONK with msm_cw=8: expected 9 K-scan launches over 32 windows, 20 K-mm-norm, "
+          "no K-mm")
+    log("  proof == phase 7's, byte for byte")
+    x, y, _ = plonk._dev_key(zk, dev, zk.ptau[2].shape[0])["ptau"]
+    scans = ceremony_scans(cv, seen, {"g1": (x, y)}, gen, rate32, errs, path="plonk cw=8")
+    return {"ms": ms, "launches": launches, "scans": scans}
+
+
+def phase_bls_fixtures(dev, gen, errs, rate32):
+    """Phase 18: the stored bls12-381 fixtures on the card.  The PLONK proof
+    of tiny_plonk_bls12381 equal to the stored JAX proof; Groth16
+    setup_from_ptau of the 3-constraint chain from tiny_p4_bls12381.ptau
+    byte-equal to tiny3_bls12381_from_ptau.zkey, a proof with it equal to
+    the CPU prove's and passing the pairing check, a tampered public
+    rejected; the bls12381_p3 ceremony chain (tests/_torch_ceremony.py)
+    equal to the stored JAX run.  Counted; then K-field, K-scan and K-mm-norm
+    held against their plain versions at every shape the phase gave them."""
+    from tests import _torch_ceremony as tc
+
+    cv = hc.BLS12_381
+    fr = cv.fr
+    steps = {}
+    with recorded_shapes() as shapes, field_shapes() as fseen:
+        reset_counts()
+        steps["plonk_fixture"], _ = wall_ms(lambda: phase_plonk_fixture(
+            dev, "tiny_plonk_bls12381"))
+        r1cs, wit = plonk_circuit(fr, 3)
+        with open(os.path.join(FIXTURES, "tiny_p4_bls12381.ptau"), "rb") as f:
+            pt = ptau_fmt.read_ptau(f.read())
+        with open(os.path.join(FIXTURES, "tiny3_bls12381_from_ptau.zkey"), "rb") as f:
+            want = f.read()
+        steps["groth16_setup_from_ptau"], zbytes = wall_ms(
+            lambda: groth16_setup.setup_from_ptau(r1cs, pt, device=dev))
+        check(zbytes == want, "bls12-381 setup_from_ptau differs from the stored JAX key")
+        zk = read_groth16_zkey(zbytes)
+        steps["groth16_prove"], (proof, publics) = wall_ms(
+            lambda: groth16.prove(zk, wit, r=0x3131, s=0x4242, device=dev))
+        cpu = groth16.prove(read_groth16_zkey(zbytes), wit, r=0x3131, s=0x4242, device="cpu")
+        check(json.dumps([proof, publics]) == json.dumps(list(cpu)),
+              "the bls12-381 Groth16 proof on the card differs from the CPU prove's")
+        vk = groth16.export_verification_key(zk)
+        check(groth16.verify(vk, publics, proof), "the bls12-381 Groth16 proof fails")
+        bad = [str(int(publics[0]) + 1)] + publics[1:]
+        check(not groth16.verify(vk, bad, proof), "tampered public accepted (bls12-381)")
+        log(f"  bls12-381 setup_from_ptau == tiny3_bls12381_from_ptau.zkey; its proof == the "
+            "CPU prove's, passes the pairing check, tampered public rejected")
+        curve, power = tc.CASES["bls12381_p3"]
+        steps["ceremony_chain"], (got, _) = wall_ms(lambda: tc.run_chain(
+            ptau_ops, ptau_fmt, ChaCha, getattr(hc, curve), power, {"device": dev}))
+        launches = counts()
+    stored = tc.stored()["bls12381_p3"]
+    check(got == {k: stored[k] for k in got},
+          "the bls12381_p3 ceremony chain differs from the stored JAX run: " + json.dumps(
+              {k: [got[k], stored.get(k)] for k in got if got[k] != stored.get(k)})[:2000])
+    log(f"  bls12381_p3 ceremony chain (new, contribute, challenge / response, beacon, "
+        f"prepare, verify, truncate, convert, json) == the stored JAX run; steps ms "
+        f"{json.dumps({k: round(v, 1) for k, v in steps.items()})}")
+    log(f"  launches {launches}; shapes: {shapes_json(shapes)}")
+    check(launches["field_ops"] > 0 and launches["msm_scan"] > 0 and launches["digit_mm"] == 0,
+          "the bls12-381 fixtures did not launch K-field and K-scan (or launched K-mm)")
+    held = kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, "bls12-381 fixtures",
+                        pt=pt)
+    return dict(held, steps_ms=steps, launches=launches)
+
+
+def fields_held(dev, gen, errs, fseen, path):
+    """K-field at every (field, elements) of `fseen` against its plain
+    version (but those held earlier)."""
+    for fname in sorted({f for f, _ in fseen}):
+        field_cases(dev, gen, errs, sorted(n for f, n in fseen if f == fname), path, fname)
+
+
+def kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, path, pt=None):
+    """K-field at every (field, elements) of `fseen`, K-scan (points from the
+    .ptau `pt`, random scalars) and K-mm-norm on `cv`'s Fr at every shape of
+    `shapes`, each against its plain version (but those held earlier)."""
+    fields_held(dev, gen, errs, fseen, path)
+    scans = []
+    if pt is not None and shapes["msm_scan"]:
+        n1, n2 = (1 << pt.power) - 1, 1 << pt.power
+        sz1 = 2 * cv.fq.n8
+        x1, y1, _ = pcodec.g1_lem_from_bytes(cv.fq, bytes(pt.sections[2][:n1 * sz1]), n1)
+        x2, y2, _ = pcodec.g2_lem_from_bytes(cv.fq, bytes(pt.sections[3][:n2 * 2 * sz1]), n2)
+        put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) \
+            else ftorch.to_tensor(a, dev)
+        scans = ceremony_scans(cv, shapes["msm_scan"], {"g1": (put(x1), put(y1)),
+                                                        "g2": (put(x2), put(y2))},
+                               gen, rate32, errs, path=path)
+    norms = norm_cases(dev, gen, shapes["digit_mm_norm"], path, errs, cv.fr.name)
+    return {"scans": scans, "norms": norms, "field_sizes": len(fseen)}
+
+
+def warm_median(prove, what):
+    """WARM_BLS warm proves: median, spread and peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    ts = [wall_ms(prove)[0] for _ in range(WARM_BLS)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"median_ms": float(np.median(ts)), "min_ms": min(ts), "max_ms": max(ts),
+           "peak_gib": peak}
+    log(f"  {what}: {WARM_BLS} warm proves, median {out['median_ms']:.1f} ms, spread "
+        f"{min(ts):.1f} .. {max(ts):.1f} ms, peak device memory {peak:.2f} GiB")
+    return out
+
+
+def phase_bls_groth16(dev, gen, errs, rate32, tables, bn_launches):
+    """Phase 19: phase 5's 2^20 Groth16 prove and its checks on bls12-381,
+    then its warm time, one prove under the profiler, K-field's times on
+    bls12-381 Fr and Fq at (NL, 2^20), and each kernel against its plain
+    version at every shape the counted prove gave it."""
+    cv = hc.BLS12_381
+    t_phase = time.perf_counter()
+    zkey, wit, prove_ms, launches, shapes, fseen = phase_full_prove(dev, tables, cv)
+    log(f"  K-field launches {launches['field_ops']} (bn128's counted prove: "
+        f"{bn_launches['field_ops']}); by op {launches['field_by_op']}")
+    check(launches["msm_scan"] == 5, "bls12-381 Groth16: expected 5 K-scan launches")
+    prove = lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev)
+    warm = warm_median(prove, "bls12-381 Groth16 2^20")
+    busy = profile_busy(prove, warm["median_ms"])
+    times = {name: field_times(dev, gen, name, rate32)
+             for name in ("bls12_381_fr", "bls12_381_fq")}
+    ctx = ftorch.get_ctx(cv.fr.name)
+    a_pts, _, b2_pts, _, h_pts = groth16._dev_points(zkey, dev)
+    w = ftorch.to_tensor(wit.values, dev)
+    p_odd = groth16.qap(ctx, zkey.domain_size, *qap_inputs(zkey, wit, dev))
+    seen = shapes["msm_scan"]
+    path = "bls12-381 groth16"
+    scans = [scan_case(cv, group, pts, scal, seen, path, rate32, errs)
+             for group, pts, scal in (("g1", a_pts, w), ("g1", h_pts, p_odd),
+                                      ("g2", b2_pts, w))]
+    check({tuple(e["shape"]) for e in scans} == set(seen),
+          f"a K-scan shape of the bls12-381 Groth16 prove was not compared: {sorted(seen)}")
+    del p_odd, w, a_pts, b2_pts, h_pts
+    check(dict(shapes["digit_mm_norm"]) == {BIG: 12},
+          f"the bls12-381 Groth16 prove's K-mm-norm shapes are not 12 x 1024^3: "
+          f"{shapes['digit_mm_norm']}")
+    held = kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, path)
+    total = time.perf_counter() - t_phase
+    log(f"  bls12-381 Groth16 phase total {total:.1f} s")
+    return dict(held, scans=scans, ms=prove_ms, warm=warm, busy_ms=busy, launches=launches,
+                field_times=times, total_s=total)
+
+
+def phase_bls_plonk(dev, gen, errs, rate32, tables, bn_launches):
+    """Phase 20: phase 7's 2^18 PLONK prove and its checks on bls12-381, its
+    warm time, then each kernel against its plain version at every shape
+    the counted prove gave it."""
+    cv = hc.BLS12_381
+    t_phase = time.perf_counter()
+    pk = phase_plonk_prove(dev, tables, cv)
+    log(f"  K-field launches {pk['launches']['field_ops']} (bn128's counted prove: "
+        f"{bn_launches['field_ops']}); by op {pk['launches']['field_by_op']}")
+    warm = warm_median(lambda: plonk.prove(pk["zk"], pk["wit"], b=pk["b"], device=dev),
+                       "bls12-381 PLONK 2^18")
+    path = "bls12-381 plonk"
+    scan, norms = phase_plonk_shapes(dev, gen, pk["zk"], pk.pop("pol_a"), pk["shapes"], errs,
+                                     rate32, cv, path)
+    fields_held(dev, gen, errs, pk["fields"], path)
+    total = time.perf_counter() - t_phase
+    log(f"  bls12-381 PLONK phase total {total:.1f} s")
+    return {"scans": [scan], "norms": norms, "field_sizes": len(pk["fields"]), "ms": pk["ms"],
+            "warm": warm, "counted_peak_gib": pk["peak_gib"], "launches": pk["launches"],
+            "total_s": total}
 
 
 def sass_tensor_core_counts():
@@ -2857,7 +3190,7 @@ def run():
     phase_fixture(dev)
     phase_plonk_fixture(dev)
     log("[2^20 Groth16 prove]")
-    zkey, wit, prove_ms, launches, shapes = phase_full_prove(dev, tables)
+    zkey, wit, prove_ms, launches, shapes, _ = phase_full_prove(dev, tables)
     log("[where the time goes]")
     _, paired_g = phase_breakdown(dev, zkey, wit, prove_ms)
     log("[Groth16 main-path shapes and times]")
@@ -2866,13 +3199,13 @@ def run():
     del zkey, wit
     torch.cuda.empty_cache()
     log(f"[2^18 PLONK prove] ({time.perf_counter() - t0:.1f} s so far)")
-    pzk, pwit, pb, plonk_ms, pl, pshapes, pol_a = phase_plonk_prove(dev, tables)
+    pk = phase_plonk_prove(dev, tables)
+    pzk, pwit, pb, plonk_ms, pl, pshapes = (pk[k] for k in ("zk", "wit", "b", "ms",
+                                                              "launches", "shapes"))
     log("[PLONK main-path shapes and times]")
-    pscan, pnorms = phase_plonk_shapes(dev, gen, pzk, pol_a, pshapes, errs, rate32)
-    del pol_a
+    pscan, pnorms = phase_plonk_shapes(dev, gen, pzk, pk.pop("pol_a"), pshapes, errs, rate32)
     log("[where the PLONK prove's time goes]")
     paired_p = phase_plonk_times(dev, pzk, pwit, pb, plonk_ms)
-    del pzk, pwit
     torch.cuda.empty_cache()
     log(f"[NTT path: K-mm] ({time.perf_counter() - t0:.1f} s so far)")
     nl, nshapes, nmms = phase_ntt_path(dev, gen, errs)
@@ -2910,13 +3243,30 @@ def run():
     log(f"[the multi-device path on one card] ({time.perf_counter() - t0:.1f} s so far)")
     mesh = phase_mesh(dev, gen, errs, rate32, ptau)
     del ptau
+    log(f"[PLONK 2^18 with msm_c=4, msm_cw=8] ({time.perf_counter() - t0:.1f} s so far)")
+    cw8 = phase_plonk_cw8(dev, gen, errs, rate32, pk)
+    del pk, pzk, pwit
+    torch.cuda.empty_cache()
+    log(f"[bls12-381: the stored fixtures and the ceremony chain] "
+        f"({time.perf_counter() - t0:.1f} s so far)")
+    blsf = phase_bls_fixtures(dev, gen, errs, rate32)
+    log(f"[bls12-381: the 2^20 Groth16 prove] ({time.perf_counter() - t0:.1f} s so far)")
+    bls_tables = point_tables(hc.BLS12_381)
+    blsg = phase_bls_groth16(dev, gen, errs, rate32, bls_tables, launches)
+    torch.cuda.empty_cache()
+    log(f"[bls12-381: the 2^18 PLONK prove] ({time.perf_counter() - t0:.1f} s so far)")
+    blsp = phase_bls_plonk(dev, gen, errs, rate32, bls_tables, pl)
+    torch.cuda.empty_cache()
+    bls = {"fixtures": blsf, "groth16": blsg, "plonk": blsp}
 
     # `launches` is a kernel's count on a driven path: the PLONK prove, but
     # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
     # FFLONK prove's, `launches_fflonk_setup` its setups', `launches_ceremony`
     # phase 13's (contribute, prepare_phase2, verify), `launches_phase2` phase
     # 14's (contribute, verify_from_init, export and import of the MPC
-    # params), `launches_cli` phase 15's CLI steps.  `ms`, `plain_ms` and
+    # params), `launches_cli` phase 15's CLI steps, `launches_plonk_cw8` phase
+    # 17's prove, `launches_bls12_381` phases 18-20's (the fixtures, the
+    # Groth16 and the PLONK prove).  `ms`, `plain_ms` and
     # `bound_ms` belong to `shape`, the shape that path gave the kernel most
     # often.  `shapes` lists every shape the paths gave the kernel (K-field
     # has too many), each with its own launches, error, times and bound.
@@ -2932,13 +3282,14 @@ def run():
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
          "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
          [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]
-         + clip["scans"] + mesh["scans"]),
+         + clip["scans"] + mesh["scans"] + cw8["scans"]
+         + [e for ph in bls.values() for e in ph["scans"]]),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
          [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"] + clip["norms"]
-         + mesh["norms"]),
+         + mesh["norms"] + [e for ph in bls.values() for e in ph["norms"]]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -2958,6 +3309,8 @@ def run():
                  launches_mesh={world: {step: [c[kname] for c in per_rank]
                                         for step, per_rank in steps.items()}
                                 for world, steps in mesh["launches"].items()},
+                 launches_plonk_cw8=cw8["launches"][kname],
+                 launches_bls12_381={ph: v["launches"][kname] for ph, v in bls.items()},
                  shapes=every)
         check(k["launches"] > 0, f"{kname} was launched on no driven path")
         check(kname == "digit_mm" or any(
@@ -2970,6 +3323,9 @@ def run():
     kernels[0]["launches_by_op_ceremony"] = {step: c["field_by_op"] for step, c in cl.items()}
     kernels[0]["launches_by_op_phase2"] = {step: c["field_by_op"] for step, c in ml.items()}
     kernels[0]["launches_by_op_cli"] = {step: c["field_by_op"] for step, c in cli_l.items()}
+    kernels[0]["launches_by_op_bls12_381"] = {ph: v["launches"]["field_by_op"]
+                                              for ph, v in bls.items()}
+    kernels[0]["bls12_381"] = blsg["field_times"]
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
     log(f"setup phase: {json.dumps(setup)}")
@@ -2978,6 +3334,10 @@ def run():
     log(f"phase 2: {json.dumps({k: v for k, v in mpc.items() if k not in ('scans', 'norms')})}")
     log(f"CLI phase: {json.dumps({k: v for k, v in clip.items() if k not in ('scans', 'norms')})}")
     log(f"mesh phase: {json.dumps({k: v for k, v in mesh.items() if k not in ('scans', 'norms')})}")
+    log(f"PLONK msm_cw=8: {json.dumps({k: v for k, v in cw8.items() if k != 'scans'})}")
+    for ph, res in bls.items():
+        log(f"bls12-381 {ph}: " + json.dumps(
+            {k: v for k, v in res.items() if k not in ("scans", "norms", "field_times")}))
     kernels[1]["registers"] = regs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")

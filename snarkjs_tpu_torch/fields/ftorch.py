@@ -55,6 +55,10 @@ class FieldCtx:
     def p(self, x, dtype=DTYPE):
         return self._c(self.p_np, x, dtype)
 
+    def pinv(self, x):
+        """-p^-1 mod R, as limbs shaped like `p`."""
+        return self._c(self.pinv_np, x)
+
     def r2(self, x):
         return self._c(self.r2_np, x)
 
@@ -238,6 +242,20 @@ def from_mont(ctx: FieldCtx, a):
     return mont_mul(ctx, a, one_plain)
 
 
+def scalar_mul_small(ctx: FieldCtx, a, k: int):
+    """a * k for a small int k in [0, 16), by double-and-add over `add`."""
+    if not 0 <= k < 16:
+        raise ValueError(f"scalar_mul_small takes k in [0, 16), not {k}")
+    r = ctx.zero(a.shape[1:], a.device)
+    base = a
+    while k:
+        if k & 1:
+            r = add(ctx, r, base)
+        base = add(ctx, base, base)
+        k >>= 1
+    return r
+
+
 def is_zero(ctx: FieldCtx, a):
     return (a == 0).all(dim=0)
 
@@ -332,6 +350,19 @@ def np_to_ints(fp: FieldParams, arr) -> list:
     n8 = 2 * fp.nl
     return [int.from_bytes(data[j * n8:(j + 1) * n8], "little")
             for j in range(flat.shape[0])]
+
+
+def np_from_bytes_le(fp: FieldParams, data: bytes, n: int) -> np.ndarray:
+    """n contiguous n8-byte little-endian field values -> (NL, n) uint32."""
+    u16 = np.frombuffer(data, dtype="<u2", count=n * fp.nl).reshape(n, fp.nl)
+    return np.ascontiguousarray(u16.T).astype(np.uint32)
+
+
+def np_to_bytes_le(fp: FieldParams, arr) -> bytes:
+    """(NL, ...) limbs (numpy or tensor) -> their n8-byte little-endian values."""
+    arr = to_numpy(arr) if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    n = int(np.prod(arr.shape[1:], dtype=np.int64)) if arr.ndim > 1 else 1
+    return np.ascontiguousarray(arr.reshape(fp.nl, n).T.astype("<u2")).tobytes()
 
 
 def to_tensor(arr, device) -> torch.Tensor:

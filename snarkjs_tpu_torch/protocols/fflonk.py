@@ -306,13 +306,15 @@ def _dev_key(zk: zkey_fmt.FflonkZkey, dev, mesh=None) -> dict:
 
 
 def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
-          logger=None, device=None, msm_cw: int = 16, mesh=None):
+          logger=None, device=None, msm_c: int = 8, msm_cw: int = 16, mesh=None):
     """Generate an FFLONK proof: (proof JSON object, public signals).
 
     b: optional list of 10 blinding ints, b[1..9] used (tests); drawn with
     `secrets` when not given.  device: None means the card ("cuda"); raises
     without one.  msm_cw: the commitments' window width (16 on the card for
     large inputs; `MSMContext.run` takes 8 below 2^14 points and off it).
+    msm_c: `MSMContext.run`'s c, read by the legacy Pippenger only, so it
+    does not change the proof.
     mesh: a `parallel.distributed.prover_mesh`: the four commitment MSMs
     run with the SRS sharded over its ranks; b is drawn on rank 0, so every
     rank returns the same proof."""
@@ -413,7 +415,7 @@ def prove(zk: zkey_fmt.FflonkZkey, witness: wtns_fmt.Witness, b=None,
         if m > M:
             raise ValueError(f"commitment degree {m} exceeds SRS length {M}")
         scal = fops.pad_to(ftorch.from_mont(ctx, coefs), M)
-        res = g1m.run(dptx, dpty, dptinf, scal, cw=msm_cw, mesh=mesh)
+        res = g1m.run(dptx, dpty, dptinf, scal, c=msm_c, cw=msm_cw, mesh=mesh)
         return msm_mod.host_jac_to_affine(cv.fq, res, 1)
 
     commitC1 = commit(polC1)

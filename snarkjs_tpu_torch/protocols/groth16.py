@@ -93,8 +93,9 @@ def _dev_points(zkey, dev, mesh=None):
 
 
 def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
-          r: int | None = None, s: int | None = None, msm_cw: int = 16,
-          device=None, out: dict | None = None, logger=None, mesh=None):
+          r: int | None = None, s: int | None = None, msm_c: int = 8,
+          msm_cw: int = 16, device=None, out: dict | None = None, logger=None,
+          mesh=None):
     """Groth16 proof and public signals (reference src/groth16_prove.js:28-144).
 
     device: None means the card ("cuda"); raises without one.  r, s: the
@@ -104,7 +105,9 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     mesh: a `parallel.distributed.prover_mesh`: the six QAP NTTs run
     four-step sharded and the five MSMs with the points sharded over its
     ranks (each rank uploads its block of the key's points); r and s are
-    drawn on rank 0, so every rank returns the same proof."""
+    drawn on rank 0, so every rank returns the same proof.  msm_c, msm_cw:
+    `MSMContext.run`'s c and cw (c is read by the legacy Pippenger only, so
+    it does not change the proof)."""
     dev = devmod.resolve(device)
     log = logger.debug if logger else (lambda msg: None)
     cv = zkey.curve
@@ -127,7 +130,7 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     g1m = msm_mod.MSMContext(fqctx, fq, extension=1)
     g2m = msm_mod.MSMContext(fqctx, fq, extension=2)
     a_pts, b1_pts, b2_pts, c_pts, h_pts = _dev_points(zkey, dev, mesh)
-    mk = dict(cw=msm_cw, mesh=mesh)
+    mk = dict(c=msm_c, cw=msm_cw, mesh=mesh)
     log("Multiexp A")
     pi_a = g1m.run(*a_pts, wit, **mk)
     log("Multiexp B1")

@@ -308,19 +308,23 @@ def _dev_key(zk: zkey_fmt.PlonkZkey, dev, M: int, mesh=None) -> dict:
 
 
 def prove(zk: zkey_fmt.PlonkZkey, witness: wtns_fmt.Witness, b=None,
-          logger=None, device=None, mesh=None):
+          logger=None, device=None, mesh=None, msm_c: int = 8, msm_cw: int = 16):
     """Generate a PLONK proof: (proof JSON object, public signals).
 
     b: optional list of 12 blinding ints, b[1..11] used (tests); drawn with
     `secrets` when not given.  device: None means the card ("cuda"); raises
     without one.  mesh: a `parallel.distributed.prover_mesh`: the nine
     commitment MSMs run with the SRS points sharded over its ranks; b is
-    drawn on rank 0, so every rank returns the same proof."""
-    proof, publics, _ = _prove_rounds(zk, witness, b, logger, device, mesh)
+    drawn on rank 0, so every rank returns the same proof.  msm_c, msm_cw:
+    the commitments' `MSMContext.run` c and cw (c is read by the legacy
+    Pippenger only, so it does not change the proof)."""
+    proof, publics, _ = _prove_rounds(zk, witness, b, logger, device, mesh,
+                                      msm_c=msm_c, msm_cw=msm_cw)
     return proof, publics
 
 
-def _prove_rounds(zk, witness, b, logger, device, mesh=None):
+def _prove_rounds(zk, witness, b, logger, device, mesh=None, msm_c: int = 8,
+                  msm_cw: int = 16):
     """The five rounds of `prove`.  Returns (proof, publics, polys): polys
     holds the device tensors (Montgomery coefficients) of the blinded
     polynomials A, B, C, Z, the quotient parts T1, T2, T3 and the opening
@@ -411,7 +415,7 @@ def _prove_rounds(zk, witness, b, logger, device, mesh=None):
         if m > M:
             raise ValueError(f"commitment degree {m} exceeds SRS length {M}")
         scal = fops.pad_to(ftorch.from_mont(ctx, coefs), M)
-        res = g1m.run(dptx, dpty, dptinf, scal, mesh=mesh)
+        res = g1m.run(dptx, dpty, dptinf, scal, c=msm_c, cw=msm_cw, mesh=mesh)
         return msm_mod.host_jac_to_affine(cv.fq, res, 1)
 
     commitA = commit(polA_b)

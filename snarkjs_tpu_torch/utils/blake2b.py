@@ -67,6 +67,10 @@ class Blake2b:
                 arr.ctypes.data, arr.size)
         return self
 
+    def length_compressed(self) -> int:
+        """Bytes compressed so far (a full buffer waits for more input)."""
+        return self._comp.value
+
     def digest(self) -> bytes:
         out = (ctypes.c_uint8 * 64)()
         _lib().snark_blake2b_final(ctypes.addressof(self._h), ctypes.addressof(self._buf),

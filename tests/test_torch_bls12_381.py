@@ -140,6 +140,22 @@ def test_bls12_381_fixtures_regenerate():
         assert _fixture(name) == data, name
 
 
+def test_chip_smoke_chain_equals_tiny_circuit():
+    """The squaring chain that chip_smoke.py and the card-only cases build
+    without the JAX package (`chip_smoke.plonk_circuit`) equals
+    `_tiny_circuit(3, "bls12-381")`, r1cs and witness."""
+    import chip_smoke
+    from snarkjs_tpu_torch.curves import host_curve as thc
+
+    _, r1cs, wit = _graft()._tiny_circuit(3, "bls12-381")
+    got, got_wit = chip_smoke.plonk_circuit(thc.BLS12_381.fr, 3)
+    for k in r1cs.__dataclass_fields__:
+        a, b = getattr(got, k), getattr(r1cs, k)
+        assert (np.array_equal(a, b) and a.dtype == b.dtype
+                if isinstance(b, np.ndarray) else a == b), k
+    assert got_wit.n == wit.n and np.array_equal(got_wit.values, wit.values)
+
+
 if __name__ == "__main__":
     os.makedirs(FIXTURES, exist_ok=True)
     for name, data in fixture_files().items():

@@ -366,7 +366,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["bn254_fr", "bn254_fq", "bls12_381_fq"])
+@pytest.mark.parametrize("name", ["bn254_fr", "bn254_fq", "bls12_381_fr", "bls12_381_fq"])
 def test_k_field_matches_plain_on_card(card, name):
     ctx = ftorch.get_ctx(name)
     fp = ctx.fp
@@ -512,6 +512,46 @@ def test_fflonk_prove_on_card_equals_stored_proof(card):
 
 
 @pytest.mark.cuda
+def test_bls12_381_plonk_prove_on_card_equals_stored_proof(card):
+    """The stored bls12-381 PLONK key and witness proved on the card (K-field
+    on both bls12-381 fields, K-scan, K-mm-norm on bls12-381 Fr) give the
+    proof the JAX package made on the CPU, byte for byte."""
+    import json
+
+    from snarkjs_tpu_torch.protocols import plonk
+
+    fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
+    with open(os.path.join(fx, "tiny_plonk_bls12381_proof.json")) as f:
+        want = json.load(f)
+    got = plonk.prove_files(os.path.join(fx, "tiny_plonk_bls12381.zkey"),
+                            os.path.join(fx, "tiny_plonk_bls12381.wtns"),
+                            b=want["b"], device=card)
+    assert json.dumps(list(got)) == json.dumps([want["proof"], want["publicSignals"]])
+
+
+@pytest.mark.cuda
+def test_bls12_381_setup_from_ptau_on_card_equals_stored_jax(card):
+    """Groth16 `setup_from_ptau` of the 3-constraint chain from the stored
+    bls12-381 power-4 .ptau on the card (segmented MSMs through K-field,
+    the csHash) gives the JAX package's key byte for byte."""
+    import chip_smoke
+    from snarkjs_tpu_torch.curves import host_curve as thc
+    from snarkjs_tpu_torch.fields import fcuda
+    from snarkjs_tpu_torch.formats import ptau as tptau
+
+    fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
+    with open(os.path.join(fx, "tiny_p4_bls12381.ptau"), "rb") as f:
+        pt = tptau.read_ptau(f.read())
+    with open(os.path.join(fx, "tiny3_bls12381_from_ptau.zkey"), "rb") as f:
+        want = f.read()
+    fcuda.reset_counts()
+    r1cs, _ = chip_smoke.plonk_circuit(thc.BLS12_381.fr, 3)   # _tiny_circuit(3)'s chain
+    got = g16setup.setup_from_ptau(r1cs, pt, device=card)
+    assert sum(fcuda.LAUNCHES.values()) > 0
+    assert got == want
+
+
+@pytest.mark.cuda
 def test_ceremony_on_card_equals_stored_jax(card):
     """preparePhase2 of the stored bn128 power-4 file on the card (every
     block through the batched group iNTT, K-field) gives the JAX package's
@@ -530,10 +570,12 @@ def test_ceremony_on_card_equals_stored_jax(card):
 
 
 @pytest.mark.cuda
-def test_ceremony_chain_on_card_equals_stored_jax(card):
-    """The whole bn128 power-4 chain on the card, where every apply-key and
-    MSM has 64 points or fewer and still goes through the kernels (K-field,
-    K-scan): every file, hash and verify result equals the JAX run."""
+@pytest.mark.parametrize("case", ["bn128_p4", "bls12381_p3"])
+def test_ceremony_chain_on_card_equals_stored_jax(card, case):
+    """The whole bn128 power-4 (bls12-381 power-3) chain on the card, where
+    every apply-key and MSM has 64 points or fewer and still goes through the
+    kernels (K-field, K-scan): every file, hash and verify result equals the
+    JAX run."""
     from snarkjs_tpu_torch.ceremony import ptau_ops
     from snarkjs_tpu_torch.curves import host_curve as thc
     from snarkjs_tpu_torch.curves import msm_gpu
@@ -542,13 +584,13 @@ def test_ceremony_chain_on_card_equals_stored_jax(card):
     from snarkjs_tpu_torch.utils.chacha import ChaCha
     from tests import _torch_ceremony as tc
 
-    curve, power = tc.CASES["bn128_p4"]
+    curve, power = tc.CASES[case]
     fcuda.reset_counts()
     scans = msm_gpu.LAUNCHES[0]
     got, _ = tc.run_chain(ptau_ops, tptau, ChaCha, getattr(thc, curve), power,
                           {"device": card})
     assert sum(fcuda.LAUNCHES.values()) > 0 and msm_gpu.LAUNCHES[0] > scans
-    want = tc.stored()["bn128_p4"]
+    want = tc.stored()[case]
     assert got == {k: want[k] for k in got}
 
 
