@@ -226,7 +226,7 @@ import time
 import numpy as np
 import torch
 
-from snarkjs_tpu_torch import _build, cli, tools
+from snarkjs_tpu_torch import _build, cli, tools, trace
 from snarkjs_tpu_torch.ceremony import bellman, keypair, ptau_ops, zkey_mpc
 from snarkjs_tpu_torch.curves import host_curve as hc
 from snarkjs_tpu_torch.curves import jac
@@ -324,17 +324,14 @@ def shapes_json(shapes):
 
 
 def reset_counts():
-    fcuda.reset_counts()
-    msm_gpu.LAUNCHES[0] = 0
-    ntt_mm.LAUNCHES[0] = 0
-    ntt_mm.NORM_LAUNCHES[0] = 0
+    trace.reset_counters()
 
 
 def counts():
-    return {"field_ops": sum(fcuda.LAUNCHES.values()),
-            "field_by_op": dict(fcuda.LAUNCHES),
-            "msm_scan": msm_gpu.LAUNCHES[0], "digit_mm": ntt_mm.LAUNCHES[0],
-            "digit_mm_norm": ntt_mm.NORM_LAUNCHES[0]}
+    c = trace.counters()
+    return {"field_ops": c["k_field"],
+            "field_by_op": {op: c["k_field." + op] for op in fcuda.OPS},
+            "msm_scan": c["k_scan"], "digit_mm": c["k_mm"], "digit_mm_norm": c["k_mm_norm"]}
 
 
 @contextlib.contextmanager

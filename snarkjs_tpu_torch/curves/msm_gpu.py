@@ -19,7 +19,10 @@ window partials come back to the host and are combined on bigints
 (`_finish`).  The lane count RL is a parameter of `_program`: on the card it
 is picked so that nw * RL threads fill the SMs (`_lanes`).
 
-`LAUNCHES` counts K-scan launches; `scan_plain` is its plain twin.
+`scan_plain` is K-scan's plain twin; the counter `k_scan` of `trace`
+counts its launches.  Spans (`trace.span`): `msm.recode`, `msm.sort`,
+`msm.scan`, `msm.phase2`, and on the mesh `msm.gather`, then
+`msm.readback` and `msm.finish`.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import functools
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
+from ..device import upload
 from ..fields import fcuda, ftorch
 from ..fields.params import LIMB_BITS, FieldParams
 from . import rcb
@@ -38,7 +42,6 @@ from .gops import field_ops
 
 LN = 128                 # lanes on the CPU (tests)
 TARGET_THREADS = 1 << 17  # K-scan threads per launch on the card
-LAUNCHES = [0]
 
 
 def _b3_ints(fp: FieldParams, b, ext):
@@ -164,7 +167,7 @@ def scan(fq: FieldParams, b, ext: int, xyT):
         ctypes.cast(_b3_words(fq, b, ext), ctypes.c_void_p), b3_small,
         _build.stream_ptr(xyT.device))
     _build.check(err, "K-scan")
-    LAUNCHES[0] += 1
+    trace.add("k_scan")
     return out
 
 
@@ -254,18 +257,21 @@ class GpuMSM:
         half = self.nb // 2
         f = field_ops(self.ctx, ext, device)
 
-        def window_scan(keys, xyp):
-            xyT, dsort = self._sorted(keys, xyp, C, RL)
-            st_all = scan(fq, self.b, ext, xyT)                      # (nw, C, nro/2, RL)
-            tot = st_all[:, 0]                                       # lane totals
-            tvals = torch.arange(2, 2 * half + 2, 2, dtype=dsort.dtype,
-                                 device=device).expand(nw, half).contiguous()
-            fidx = torch.searchsorted(dsort, tvals)                  # (nw, half)
-            valid = fidx < Np
-            safe = fidx.clamp(max=Np - 1)
-            lane, cpos = safe // C, safe % C
-            widx = torch.arange(nw, device=device)[:, None]
-            A = st_all[widx, cpos, :, lane]                          # (nw, half, nro/2)
+        def window_scan(keys, px, py):
+            with trace.span("msm.sort"):
+                xyp = self._xy_packed(px, py)
+                xyT, dsort = self._sorted(keys, xyp, C, RL)
+            with trace.span("msm.scan"):
+                st_all = scan(fq, self.b, ext, xyT)                  # (nw, C, nro/2, RL)
+                tot = st_all[:, 0]                                   # lane totals
+                tvals = torch.arange(2, 2 * half + 2, 2, dtype=dsort.dtype,
+                                     device=device).expand(nw, half).contiguous()
+                fidx = torch.searchsorted(dsort, tvals)              # (nw, half)
+                valid = fidx < Np
+                safe = fidx.clamp(max=Np - 1)
+                lane, cpos = safe // C, safe % C
+                widx = torch.arange(nw, device=device)[:, None]
+                A = st_all[widx, cpos, :, lane]                      # (nw, half, nro/2)
             return A, tot, lane, valid
 
         def phase2(A, tot, lane, valid):
@@ -281,9 +287,12 @@ class GpuMSM:
             return _flat(_map(lambda a: a[..., 0], W), ext)
 
         def msm_all(px, py, pinf, scalars):
-            keys = self._keys(pinf, scalars)
+            with trace.span("msm.recode"):
+                keys = self._keys(pinf, scalars)
             assert keys.shape[0] == nw
-            return phase2(*window_scan(keys, self._xy_packed(px, py)))
+            scanned = window_scan(keys, px, py)
+            with trace.span("msm.phase2"):
+                return phase2(*scanned)
 
         return msm_all
 
@@ -337,7 +346,7 @@ class GpuMSM:
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
         flatW = self._program(C, RL, nw, device)(px, py, pinf, scalars)
-        return self._finish(ftorch.to_numpy(flatW))
+        return self._read_and_finish(flatW)
 
     def run_sharded(self, mesh, px, py, pinf, scalars):
         """MSM with the points sharded over the ranks of `mesh` (port of
@@ -360,8 +369,15 @@ class GpuMSM:
         C = max(1, -(-per // RL))
         px, py, pinf, scal = _pad_to(C * RL, px, py, pinf, scalars[:, sl])
         flatW = self._program(C, RL, nw, device)(px, py, pinf, scal)   # (nro, nw)
-        parts = pdist.all_gather(mesh, flatW)                           # (ndev, nro, nw)
-        return self._finish(ftorch.to_numpy(parts.permute(1, 2, 0)))
+        with trace.span("msm.gather"):
+            parts = pdist.all_gather(mesh, flatW)                       # (ndev, nro, nw)
+        return self._read_and_finish(parts.permute(1, 2, 0))
+
+    def _read_and_finish(self, flatW):
+        with trace.span("msm.readback"):
+            host = ftorch.to_numpy(flatW)
+        with trace.span("msm.finish"):
+            return self._finish(host)
 
     def _finish(self, flatW: np.ndarray):
         """Host window combination (bigints): W = sum_w 2^(cw*w) W_w.
@@ -413,7 +429,7 @@ def local_block(n: int, sl: slice, px, py, pinf, device):
         take = lambda a: a
     else:
         raise ValueError(f"points: {have} of them, neither all {n} nor the block of {size}")
-    put = lambda a: take(a).to(device)
+    put = lambda a: upload(take(a), device)
     return _map(put, px), _map(put, py), put(pinf)
 
 

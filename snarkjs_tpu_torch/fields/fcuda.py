@@ -6,7 +6,8 @@ every op on a CUDA tensor; the plain versions of the same four ops live in
 `ftorch` (`_mont_mul_plain` and friends) and serve CPU tensors.
 
 Bound on the card: bytes (a stream of 16-bit limbs in u32 words); the design
-note is in the source.  `LAUNCHES` counts kernel launches per op.
+note is in the source.  `LAUNCHES` counts kernel launches per op;
+`trace.counters()` reads it.
 """
 
 from __future__ import annotations

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
+from ..device import upload
 from . import fcuda
 from .params import LIMB_BITS, LIMB_MASK, FieldParams, get_params
 
@@ -49,7 +51,7 @@ class FieldCtx:
         self.p_toe = toe(self.p_np, 2 * self.nl).astype(np.float64)
 
     def _c(self, arr_np, like, dtype=DTYPE):
-        return torch.as_tensor(arr_np, dtype=dtype, device=like.device).reshape(
+        return upload(torch.as_tensor(arr_np, dtype=dtype), like.device).reshape(
             (self.nl,) + (1,) * (like.dim() - 1))
 
     def p(self, x, dtype=DTYPE):
@@ -63,7 +65,7 @@ class FieldCtx:
         return self._c(self.r2_np, x)
 
     def one(self, batch_shape=(), device="cpu"):
-        t = torch.as_tensor(self.one_np, dtype=DTYPE, device=device)
+        t = upload(torch.as_tensor(self.one_np, dtype=DTYPE), device)
         return t.reshape((self.nl,) + (1,) * len(batch_shape)).expand(
             (self.nl,) + tuple(batch_shape)).contiguous()
 
@@ -135,7 +137,7 @@ def _conv_const(toe, x):
     """Column sums of the limb product of x with a constant whose Toeplitz
     matrix is `toe`: one float64 matmul.  Each limb product is below 2^32 and
     each column a sum of at most 24 of them, so every sum is exact."""
-    t = torch.as_tensor(toe, device=x.device)
+    t = upload(torch.as_tensor(toe), x.device)
     out = t @ x.reshape(x.shape[0], -1).to(torch.float64)
     return out.to(torch.int64).reshape((t.shape[0],) + tuple(x.shape[1:]))
 
@@ -367,9 +369,12 @@ def np_to_bytes_le(fp: FieldParams, arr) -> bytes:
 
 def to_tensor(arr, device) -> torch.Tensor:
     """uint32 limb array -> int32 tensor on `device`."""
-    return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(device)
+    return upload(torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)), device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """int32 limb tensor -> uint32 numpy array (the JAX package's layout)."""
+    if t.device.type == "cuda":
+        trace.add("d2h_bytes", t.nbytes)
+        trace.add("d2h_copies")
     return t.detach().cpu().numpy().astype(np.uint32)

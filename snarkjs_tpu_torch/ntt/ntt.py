@@ -15,11 +15,11 @@ field ops are kernel K-field.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from .. import trace
+from ..device import upload
 from ..fields import ftorch
 from ..fields.ftorch import FieldCtx
 from ..fields.params import get_params
@@ -37,7 +37,7 @@ def bit_reverse_perm(k: int) -> np.ndarray:
     return rev
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _twiddles(field_name: str, k: int, inverse: bool):
     """Per-stage twiddle tables, Montgomery form, numpy (NL, m) for stage m."""
     fp = get_params(field_name)
@@ -54,7 +54,7 @@ def _twiddles(field_name: str, k: int, inverse: bool):
     return tables
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _n_inv_mont(field_name: str, k: int):
     fp = get_params(field_name)
     return ftorch.np_from_ints(fp, [fp.to_mont(pow(1 << k, fp.p - 2, fp.p))])
@@ -64,7 +64,7 @@ def _ntt_core(ctx: FieldCtx, a, k: int, inverse: bool):
     n = 1 << k
     nl = ctx.nl
     dev = a.device
-    x = a[:, torch.as_tensor(bit_reverse_perm(k), device=dev)]
+    x = a[:, upload(torch.from_numpy(bit_reverse_perm(k)), dev)]
     tables = _twiddles(ctx.fp.name, k, inverse)
     for s in range(1, k + 1):
         m = 1 << (s - 1)
@@ -115,7 +115,7 @@ def intt(ctx: FieldCtx, a):
     return _ntt_core(ctx, a, k, inverse=True)
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _power_blocks(field_name: str, first: int, inc: int, n: int):
     """Host tables for powers first*inc^i as a b x b outer product:
     lo[j] = first*inc^j (j < b), hi[i] = inc^(b*i)."""

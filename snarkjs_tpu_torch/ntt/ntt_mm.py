@@ -12,17 +12,17 @@ sum w*(xR) = (sum w*x)*R.
 `digit_mm_norm` replaces ntt_mxu._pallas_mm_norm: the product with the
 normalisation as the kernel's epilogue (kernel K-mm-norm,
 csrc/digit_mm_norm.cu), so the columns never reach device memory as int32.
-Its plain version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`;
-`NORM_LAUNCHES` counts its launches.  It is the one route of every stage
-(`_mm_stage`).
+Its plain version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`; the
+counter `k_mm_norm` of `trace` counts its launches.  It is the one route of
+every stage (`_mm_stage`).
 
 `digit_mm` replaces ntt_mxu._pallas_mm: the columns alone (kernel K-mm,
 csrc/digit_mm.cu).  Its plain version is the same sum as exact matmuls:
 int64 on the CPU, float64 on the card (every column is below 2^31 < 2^53,
-and torch has no general integer GEMM on CUDA).  `LAUNCHES` counts K-mm
-launches.  `ntt(ctx, a, fused=False)` and `intt(ctx, a, fused=False)` run
-the stages as K-mm followed by `_normalize_cols` in PyTorch; the provers
-never ask for that.
+and torch has no general integer GEMM on CUDA).  The counter `k_mm` counts
+K-mm launches.  `ntt(ctx, a, fused=False)` and `intt(ctx, a, fused=False)`
+run the stages as K-mm followed by `_normalize_cols` in PyTorch; the
+provers never ask for that.
 
 Both kernels share one tensor-core main loop (csrc/digit_mma.cuh), which
 wants the summed index y contiguous in both operands: W8 (nd, r, q) has it,
@@ -40,14 +40,13 @@ import functools
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
+from ..device import upload
 from ..fields import ftorch
 from ..fields.ftorch import FieldCtx
 from ..fields.params import FieldParams, get_params
 
 MAX_LOG_R = 10          # largest direct DFT matmul: 1024 x 1024
-LAUNCHES = [0]
-NORM_LAUNCHES = [0]
 
 
 def _nd(fp: FieldParams) -> int:
@@ -86,7 +85,7 @@ def _root_powers(fp: FieldParams, root: int, n: int):
     return out
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _w_matrix_digits(field_name: str, k: int, inverse: bool) -> np.ndarray:
     """(nd, r, r) int8: balanced digits of the size-2^k DFT matrix (plain
     residues); the inverse folds in r^-1."""
@@ -104,7 +103,7 @@ def _w_matrix_digits(field_name: str, k: int, inverse: bool) -> np.ndarray:
     return np.ascontiguousarray(digs[idx].transpose(2, 0, 1))
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _twiddle_parts(field_name: str, k: int, k1: int, inverse: bool):
     """Factored twiddles T[k2, j1] = w^(+-j1*k2) = A[k2 % s, j1] * B[k2 // s, j1]
     (Montgomery limbs), so the device builds T with one multiply."""
@@ -127,7 +126,7 @@ def _twiddle_parts(field_name: str, k: int, k1: int, inverse: bool):
     return s, table(1, s), table(s, n2 // s)
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _fold_tables(field_name: str, ncols: int):
     """(nh, F): F (nh+1, n8+1) int8 balanced digits of 2^(8*(n8+h)) mod p."""
     fp = get_params(field_name)
@@ -137,7 +136,7 @@ def _fold_tables(field_name: str, ncols: int):
     return nh, F
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _barrett_consts(field_name: str, nh: int):
     """Barrett shift/mu, p limbs and the fold-compensation C = 128*(nh+1)*p
     as (nl+1)-limb tables."""
@@ -222,7 +221,7 @@ def _reduce_digits(fp: FieldParams, digs):
         hc = mneg
     hs.append(hc)
     hi8 = torch.stack(hs)
-    Ft = torch.as_tensor(F.T.astype(np.int64), device=digs.device)
+    Ft = upload(torch.from_numpy(F.T.astype(np.int64)), digs.device)
     fold = _exact_matmul(Ft, hi8.reshape(nh + 1, -1)).reshape(
         (ndig + 1,) + digs.shape[1:])
     # 3) 16-bit limbs plus the compensation constant, signed carries
@@ -324,7 +323,7 @@ def digit_mm(W8, D8, y_major: bool = False):
         err = _lib().snark_digit_mm(W8.data_ptr(), DT.data_ptr(), out.data_ptr(),
                                     nd, r, q, m, _build.stream_ptr(D8.device))
         _build.check(err, "K-mm")
-        LAUNCHES[0] += 1
+        trace.add("k_mm")
     return out
 
 
@@ -335,7 +334,7 @@ def digit_mm_norm_plain(fp: FieldParams, W8, D8):
     return _normalize_cols(fp, digit_mm_plain(W8, D8))
 
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _norm_consts(field_name: str) -> bytes:
     """The kernel's per-field tables as the bytes of its argument struct:
     F (nh+1, n8+1) int8 row-major, padded to a multiple of 4; then p and the
@@ -391,15 +390,15 @@ def digit_mm_norm(fp: FieldParams, W8, D8, y_major: bool = False):
             nbytes, nd, r, q, m, consts, len(consts),
             _build.stream_ptr(D8.device))
         _build.check(err, "K-mm-norm")
-        NORM_LAUNCHES[0] += 1
+        trace.add("k_mm_norm")
     return out
 
 
 # --------------------------------------------------------------- the NTT
 
-@functools.lru_cache(maxsize=None)
+@trace.table
 def _w_matrix_on(field_name: str, k: int, inverse: bool, device: str):
-    return torch.from_numpy(_w_matrix_digits(field_name, k, inverse)).to(device)
+    return upload(torch.from_numpy(_w_matrix_digits(field_name, k, inverse)), device)
 
 
 def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, aT, fused: bool = True):

@@ -42,6 +42,7 @@ import torch
 from ..curves import jac
 from ..curves import msm as msm_mod
 from ..curves.msm_gpu import local_block
+from ..device import upload
 from ..fields import ftorch
 from ..fields.params import get_params
 from ..ntt import ntt as nttmod
@@ -181,7 +182,7 @@ def _ntt_axis(ctx, x, axis_len: int, inverse: bool, over_axis: int):
             y = ftorch.mont_mul(ctx, y, _scalar(ctx, axis_len, x.device, 3))
         return y.reshape((nl, axis_len) + lead).movedim(1, over_axis)
     bt = x2.shape[1]
-    x2 = x2[:, :, torch.as_tensor(nttmod.bit_reverse_perm(k), device=x.device)]
+    x2 = x2[:, :, upload(torch.from_numpy(nttmod.bit_reverse_perm(k)), x.device)]
     tables = nttmod._twiddles(ctx.fp.name, k, inverse)
     for s in range(1, k + 1):
         m = 1 << (s - 1)

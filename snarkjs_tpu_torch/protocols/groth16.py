@@ -13,6 +13,12 @@ Prover pipeline, on the card by default:
 
 With `mesh` the NTTs run four-step sharded (`parallel.sharded.ntt_sharded`)
 and the MSMs with their points sharded (`GpuMSM.run_sharded`).
+
+`prove` is the root span `groth16.prove` of `trace` (recorded under the
+torch profiler): `prove.witness_upload`, `prove.logger` (each logger line),
+`qap` (`qap.coef_upload`, `qap.build_abc`, a `qap.ntt` for each of A, B, C,
+`qap.pointwise`), five `msm` (their children in `curves/msm_gpu.py`),
+`prove.affine` and `prove.blind`.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import device as devmod
+from .. import trace
 from ..curves import host_curve as hc
 from ..curves import msm as msm_mod
 from ..fields import ftorch
@@ -57,26 +64,31 @@ def qap(ctx, domain_size, coef_val, coef_m, coef_c, coef_s, witness, mesh=None):
     fp = ctx.fp
     k = domain_size.bit_length() - 1
     inc = fp.w[k + 1] if k < fp.s else fp.shift
-    prod = ftorch.mont_mul(ctx, coef_val, witness[:, coef_s])
-    drop = torch.full_like(coef_c, domain_size)
-    A_T = _segment_field_sum(ctx, prod, torch.where(coef_m == 0, coef_c, drop),
-                             domain_size)
-    B_T = _segment_field_sum(ctx, prod, torch.where(coef_m == 1, coef_c, drop),
-                             domain_size)
-    C_T = ftorch.mont_mul(ctx, A_T, B_T)
+    with trace.span("qap.build_abc"):
+        prod = ftorch.mont_mul(ctx, coef_val, witness[:, coef_s])
+        drop = torch.full_like(coef_c, domain_size)
+        A_T = _segment_field_sum(ctx, prod, torch.where(coef_m == 0, coef_c, drop),
+                                 domain_size)
+        B_T = _segment_field_sum(ctx, prod, torch.where(coef_m == 1, coef_c, drop),
+                                 domain_size)
+        C_T = ftorch.mont_mul(ctx, A_T, B_T)
 
     def odd_evals(X):
         if mesh is not None:
             from ..parallel import sharded
 
-            coeffs = sharded.ntt_sharded(mesh, ctx, X, inverse=True)
-            return sharded.ntt_sharded(mesh, ctx, nttmod.apply_powers(ctx, coeffs, 1, inc))
-        coeffs = nttmod.intt(ctx, X)
-        return nttmod.ntt(ctx, nttmod.apply_powers(ctx, coeffs, 1, inc))
+            with trace.span("qap.ntt", k=k, sharded=True):
+                coeffs = sharded.ntt_sharded(mesh, ctx, X, inverse=True)
+                return sharded.ntt_sharded(mesh, ctx,
+                                           nttmod.apply_powers(ctx, coeffs, 1, inc))
+        with trace.span("qap.ntt", k=k):
+            coeffs = nttmod.intt(ctx, X)
+            return nttmod.ntt(ctx, nttmod.apply_powers(ctx, coeffs, 1, inc))
 
     Ao, Bo, Co = odd_evals(A_T), odd_evals(B_T), odd_evals(C_T)
-    P = ftorch.sub(ctx, ftorch.mont_mul(ctx, Ao, Bo), Co)
-    return ftorch.from_mont(ctx, P)
+    with trace.span("qap.pointwise"):
+        P = ftorch.sub(ctx, ftorch.mont_mul(ctx, Ao, Bo), Co)
+        return ftorch.from_mont(ctx, P)
 
 
 def _dev_points(zkey, dev, mesh=None):
@@ -109,7 +121,6 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     `MSMContext.run`'s c and cw (c is read by the legacy Pippenger only, so
     it does not change the proof)."""
     dev = devmod.resolve(device)
-    log = logger.debug if logger else (lambda msg: None)
     cv = zkey.curve
     fr, fq = cv.fr, cv.fq
     if witness.q != fr.p:
@@ -118,42 +129,56 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
         raise ValueError(
             f"invalid witness length. Circuit: {zkey.n_vars}, witness: {witness.n}")
 
-    ctx = ftorch.get_ctx(fr.name)
-    co = zkey.coeffs
-    idx = lambda a: torch.from_numpy(a.astype("int64")).to(dev)
-    wit = ftorch.to_tensor(witness.values, dev)
-    log("QAP: buildABC + 6 NTTs")
-    p_odd = qap(ctx, zkey.domain_size, ftorch.to_tensor(co["val"], dev),
-                idx(co["m"]), idx(co["c"]), idx(co["s"]), wit, mesh)
+    def log(msg):
+        if logger:
+            with trace.span("prove.logger"):
+                logger.debug(msg)
 
-    fqctx = ftorch.get_ctx(fq.name)
-    g1m = msm_mod.MSMContext(fqctx, fq, extension=1)
-    g2m = msm_mod.MSMContext(fqctx, fq, extension=2)
-    a_pts, b1_pts, b2_pts, c_pts, h_pts = _dev_points(zkey, dev, mesh)
-    mk = dict(c=msm_c, cw=msm_cw, mesh=mesh)
-    log("Multiexp A")
-    pi_a = g1m.run(*a_pts, wit, **mk)
-    log("Multiexp B1")
-    pi_b1 = g1m.run(*b1_pts, wit, **mk)
-    log("Multiexp B2")
-    pi_b = g2m.run(*b2_pts, wit, **mk)
-    log("Multiexp C")
-    pi_c = g1m.run(*c_pts, wit[:, zkey.n_public + 1:], **mk)
-    log("Multiexp H")
-    res_h = g1m.run(*h_pts, p_odd, **mk)
-    if out is not None:
-        out.update(p_odd=p_odd, A=pi_a, B1=pi_b1, B2=pi_b, C=pi_c, H=res_h)
+    with trace.root("groth16.prove", curve=cv.name, domain=zkey.domain_size,
+                    n_vars=zkey.n_vars):
+        ctx = ftorch.get_ctx(fr.name)
+        co = zkey.coeffs
+        idx = lambda a: devmod.upload(torch.from_numpy(a.astype("int64")), dev)
+        with trace.span("prove.witness_upload"):
+            wit = ftorch.to_tensor(witness.values, dev)
+        log("QAP: buildABC + 6 NTTs")
+        with trace.span("qap"):
+            with trace.span("qap.coef_upload"):
+                coefs = (ftorch.to_tensor(co["val"], dev), idx(co["m"]), idx(co["c"]),
+                         idx(co["s"]))
+            p_odd = qap(ctx, zkey.domain_size, *coefs, wit, mesh)
+            del coefs       # the device coefficients go before the MSMs
 
-    A = msm_mod.host_jac_to_affine(fq, pi_a, 1)
-    B1 = msm_mod.host_jac_to_affine(fq, pi_b1, 1)
-    B2 = msm_mod.host_jac_to_affine(fq, pi_b, 2)
-    C = msm_mod.host_jac_to_affine(fq, pi_c, 1)
-    H = msm_mod.host_jac_to_affine(fq, res_h, 1)
-    r, s = draw_once(mesh, lambda: (secrets.randbelow(fr.p) if r is None else r,
-                                    secrets.randbelow(fr.p) if s is None else s))
-    proof = blind(zkey, A, B1, B2, C, H, r, s)
-    publics = ftorch.np_to_ints(fr, witness.values[:, 1:zkey.n_public + 1])
-    return proof, [str(x) for x in publics]
+        fqctx = ftorch.get_ctx(fq.name)
+        g1m = msm_mod.MSMContext(fqctx, fq, extension=1)
+        g2m = msm_mod.MSMContext(fqctx, fq, extension=2)
+        a_pts, b1_pts, b2_pts, c_pts, h_pts = _dev_points(zkey, dev, mesh)
+
+        def msm(name, m, pts, scalars):
+            log(f"Multiexp {name}")
+            with trace.span("msm", name=name, group=m.ext, points=scalars.shape[-1]):
+                return m.run(*pts, scalars, c=msm_c, cw=msm_cw, mesh=mesh)
+
+        pi_a = msm("A", g1m, a_pts, wit)
+        pi_b1 = msm("B1", g1m, b1_pts, wit)
+        pi_b = msm("B2", g2m, b2_pts, wit)
+        pi_c = msm("C", g1m, c_pts, wit[:, zkey.n_public + 1:])
+        res_h = msm("H", g1m, h_pts, p_odd)
+        if out is not None:
+            out.update(p_odd=p_odd, A=pi_a, B1=pi_b1, B2=pi_b, C=pi_c, H=res_h)
+
+        with trace.span("prove.affine"):
+            A = msm_mod.host_jac_to_affine(fq, pi_a, 1)
+            B1 = msm_mod.host_jac_to_affine(fq, pi_b1, 1)
+            B2 = msm_mod.host_jac_to_affine(fq, pi_b, 2)
+            C = msm_mod.host_jac_to_affine(fq, pi_c, 1)
+            H = msm_mod.host_jac_to_affine(fq, res_h, 1)
+        with trace.span("prove.blind"):
+            r, s = draw_once(mesh, lambda: (secrets.randbelow(fr.p) if r is None else r,
+                                            secrets.randbelow(fr.p) if s is None else s))
+            proof = blind(zkey, A, B1, B2, C, H, r, s)
+        publics = ftorch.np_to_ints(fr, witness.values[:, 1:zkey.n_public + 1])
+        return proof, [str(x) for x in publics]
 
 
 def _shard_key(mesh):
@@ -178,7 +203,7 @@ def point_block(pts, n: int, mesh, dev):
         if isinstance(t, tuple):
             return tuple(put(x) for x in t)
         if t.dtype == bool:
-            return torch.from_numpy(np.ascontiguousarray(t[sl])).to(dev)
+            return devmod.upload(torch.from_numpy(np.ascontiguousarray(t[sl])), dev)
         return ftorch.to_tensor(t[..., sl], dev)
 
     return put(pts)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from snarkjs_tpu_torch import device as devmod
+from snarkjs_tpu_torch import trace
 from snarkjs_tpu_torch.fields import ftorch
 from snarkjs_tpu_torch.protocols import groth16_setup as g16setup
 from snarkjs_tpu_torch.protocols import plonk_setup
@@ -397,7 +398,6 @@ def test_jac_add_through_k_field_matches_plain_on_card(card, ext):
     from snarkjs_tpu_torch.curves import host_curve as hc
     from snarkjs_tpu_torch.curves import jac
     from snarkjs_tpu_torch.curves.gops import field_ops
-    from snarkjs_tpu_torch.fields import fcuda
 
     cv = hc.BN254
     fq = cv.fq
@@ -416,9 +416,9 @@ def test_jac_add_through_k_field_matches_plain_on_card(card, ext):
 
     f = field_ops(ftorch.get_ctx(fq.name), ext, card)
     P, Q = jac.from_affine(f, *pts(ks)), jac.from_affine(f, *pts(qs))
-    before = sum(fcuda.LAUNCHES.values())
+    before = trace.counters()["k_field"]
     got = jac.jac_add(f, jac.jac_dbl(f, P), Q)
-    assert sum(fcuda.LAUNCHES.values()) > before
+    assert trace.counters()["k_field"] > before
     with ftorch.plain_versions():
         want = jac.jac_add(f, jac.jac_dbl(f, P), Q)
     flat = lambda t: [y for x in t for y in (flat(x) if isinstance(x, tuple) else [x])]
@@ -434,9 +434,9 @@ def test_k_mm_matches_plain_on_card(card, r, q, m):
     g = torch.Generator().manual_seed(3)
     W8 = torch.randint(-128, 128, (33, r, q), generator=g, dtype=torch.int8)
     D8 = torch.randint(-128, 128, (33, q, m), generator=g, dtype=torch.int8)
-    before = ntt_mm.LAUNCHES[0]
+    before = trace.counters()["k_mm"]
     got = ntt_mm.digit_mm(W8.to(card), D8.to(card))
-    assert ntt_mm.LAUNCHES[0] == before + 1
+    assert trace.counters()["k_mm"] == before + 1
     assert torch.equal(got, ntt_mm.digit_mm_plain(W8.to(card), D8.to(card)))
 
 
@@ -452,9 +452,9 @@ def test_k_mm_norm_matches_plain_on_card(card, field, r, q, m):
     limbs = torch.randint(0, 1 << 16, (fp.nl, q, m), generator=g,
                           dtype=torch.int32)
     D8 = ntt_mm._to_digits(fp, limbs)
-    before = ntt_mm.NORM_LAUNCHES[0]
+    before = trace.counters()["k_mm_norm"]
     got = ntt_mm.digit_mm_norm(fp, W8.to(card), D8.to(card))
-    assert ntt_mm.NORM_LAUNCHES[0] == before + 1
+    assert trace.counters()["k_mm_norm"] == before + 1
     assert torch.equal(got, ntt_mm.digit_mm_norm_plain(fp, W8.to(card), D8.to(card)))
 
 
@@ -488,9 +488,9 @@ def test_k_scan_matches_plain_on_card(card, curve, group, n, lanes):
     xyT = m.scan_input(px, py, torch.zeros(n, dtype=torch.bool, device=card),
                        scal, lanes=lanes)
     assert xyT.shape[1] == -(-n // lanes) and xyT.shape[3] == lanes
-    before = msm_gpu.LAUNCHES[0]
+    before = trace.counters()["k_scan"]
     got = msm_gpu.scan(fq, m.b, m.ext, xyT)
-    assert msm_gpu.LAUNCHES[0] == before + 1
+    assert trace.counters()["k_scan"] == before + 1
     assert torch.equal(got, msm_gpu.scan_plain(fq, m.b, m.ext, xyT))
 
 
@@ -536,7 +536,6 @@ def test_bls12_381_setup_from_ptau_on_card_equals_stored_jax(card):
     the csHash) gives the JAX package's key byte for byte."""
     import chip_smoke
     from snarkjs_tpu_torch.curves import host_curve as thc
-    from snarkjs_tpu_torch.fields import fcuda
     from snarkjs_tpu_torch.formats import ptau as tptau
 
     fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
@@ -544,10 +543,10 @@ def test_bls12_381_setup_from_ptau_on_card_equals_stored_jax(card):
         pt = tptau.read_ptau(f.read())
     with open(os.path.join(fx, "tiny3_bls12381_from_ptau.zkey"), "rb") as f:
         want = f.read()
-    fcuda.reset_counts()
+    trace.reset_counters()
     r1cs, _ = chip_smoke.plonk_circuit(thc.BLS12_381.fr, 3)   # _tiny_circuit(3)'s chain
     got = g16setup.setup_from_ptau(r1cs, pt, device=card)
-    assert sum(fcuda.LAUNCHES.values()) > 0
+    assert trace.counters()["k_field"] > 0
     assert got == want
 
 
@@ -557,14 +556,13 @@ def test_ceremony_on_card_equals_stored_jax(card):
     block through the batched group iNTT, K-field) gives the JAX package's
     file byte for byte, and verify accepts it there (K-scan, K-mm-norm)."""
     from snarkjs_tpu_torch.ceremony import ptau_ops
-    from snarkjs_tpu_torch.fields import fcuda
     from snarkjs_tpu_torch.formats import ptau as tptau
     from tests import _torch_ceremony as tc
 
     pt = tptau.read_ptau(tc.stored_beacon_file())
-    before = sum(fcuda.LAUNCHES.values())
+    before = trace.counters()["k_field"]
     prep = ptau_ops.prepare_phase2(pt, device=card)
-    assert sum(fcuda.LAUNCHES.values()) > before
+    assert trace.counters()["k_field"] > before
     assert tc.sha(prep.tobytes()) == tc.stored()["bn128_p4"]["sha256"]["prepared"]
     assert ptau_ops.verify(prep, rng=np.random.default_rng(tc.VERIFY_SEED), device=card)
 
@@ -578,18 +576,16 @@ def test_ceremony_chain_on_card_equals_stored_jax(card, case):
     JAX run."""
     from snarkjs_tpu_torch.ceremony import ptau_ops
     from snarkjs_tpu_torch.curves import host_curve as thc
-    from snarkjs_tpu_torch.curves import msm_gpu
-    from snarkjs_tpu_torch.fields import fcuda
     from snarkjs_tpu_torch.formats import ptau as tptau
     from snarkjs_tpu_torch.utils.chacha import ChaCha
     from tests import _torch_ceremony as tc
 
     curve, power = tc.CASES[case]
-    fcuda.reset_counts()
-    scans = msm_gpu.LAUNCHES[0]
+    trace.reset_counters()
+    scans = trace.counters()["k_scan"]
     got, _ = tc.run_chain(ptau_ops, tptau, ChaCha, getattr(thc, curve), power,
                           {"device": card})
-    assert sum(fcuda.LAUNCHES.values()) > 0 and msm_gpu.LAUNCHES[0] > scans
+    assert trace.counters()["k_field"] > 0 and trace.counters()["k_scan"] > scans
     want = tc.stored()[case]
     assert got == {k: want[k] for k in got}
 
@@ -603,8 +599,6 @@ def test_phase2_chain_on_card_equals_cpu(card):
     tests/test_torch_bellman.py hold equal to the JAX package's."""
     from snarkjs_tpu_torch.ceremony import bellman, zkey_mpc
     from snarkjs_tpu_torch.curves import host_curve as thc
-    from snarkjs_tpu_torch.curves import msm_gpu
-    from snarkjs_tpu_torch.fields import fcuda
     from snarkjs_tpu_torch.formats import ptau as tptau
     from snarkjs_tpu_torch.utils.chacha import ChaCha
     from tests import _torch_phase2 as p2
@@ -621,9 +615,9 @@ def test_phase2_chain_on_card_equals_cpu(card):
                                              device=dev)
         return z1, h1, z2, h2, ok, mpc, resp, h, bellman.import_mpc_params(z2, resp, device=dev)
 
-    fcuda.reset_counts()
-    scans = msm_gpu.LAUNCHES[0]
+    trace.reset_counters()
+    scans = trace.counters()["k_scan"]
     got = run(card)
-    assert sum(fcuda.LAUNCHES.values()) > 0 and msm_gpu.LAUNCHES[0] == scans + 4
+    assert trace.counters()["k_field"] > 0 and trace.counters()["k_scan"] == scans + 4
     assert got == run("cpu")
     assert got[4] is True and got[-1] is not False
