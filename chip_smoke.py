@@ -8,14 +8,16 @@ Phases (any failure exits non-zero before the last line):
   2. build csrc/*.cu with nvcc (one process per source, in parallel); print
      each K-scan instantiation's registers and local memory (from the loaded
      library) and spills (the ptxas report of that library) and the SASS
-     instructions of one step by class; the SASS of K-mm and K-mm-norm must
-     hold tensor-core instructions (IGMMA / IMMA);
+     instructions of one step by class, and the registers and local memory
+     of each K-reduce instantiation; the SASS of K-mm and
+     K-mm-norm must hold tensor-core instructions (IGMMA / IMMA);
   3. each kernel against its plain PyTorch version on the card, limb for limb:
      K-field (all four ops; bn254 Fr/Fq, bls12-381 Fq; 2^20 elements with the
      edge values and to_mont of limbs in [p, R)), K-scan (every instantiation:
      bn254 and bls12-381, G1 and G2, cw=8, 2^12 points; bn254 G1 also on a
-     lane count that is no multiple of 128 and with C = 1), K-mm and
-     K-mm-norm (1024 x 1024 x 1024, r = 4 with
+     lane count that is no multiple of 128 and with C = 1), K-reduce on each
+     of those K-scan outputs (each window's partial equal, as an affine
+     point), K-mm and K-mm-norm (1024 x 1024 x 1024, r = 4 with
      m = 2^16, m = 4 with r = 1024, and a shape that is no multiple of 4;
      K-mm-norm on bn254 Fr and bls12-381 Fr);
   4. the stored tiny bn128 fixtures proved through `prove_files`, byte-equal
@@ -185,14 +187,18 @@ Phases (any failure exits non-zero before the last line):
      20 K-mm-norm, no K-mm), WARM_BLS warm proves, then K-scan, K-mm-norm
      and K-field against their plain versions
      at every shape it gave them;
- 21. K-scan's registers, local memory and spills, the kernels line, then the
-     contract line.
+ 21. K-scan's registers, local memory and spills, the kernels line (K-field,
+     K-scan, K-reduce, K-mm, K-mm-norm: launches on each path, times, bounds;
+     K-reduce's launches on every path, step and rank 4 for each K-scan's),
+     then the contract line.
 
 K-scan is held against its plain version on every lane of each bn128
 shape, and on the first BLS_HOLD_LANES lanes of each bls12-381 shape: the
 kernel runs the whole shape, a lane's scan reads only its own points, and
 the MSM closed forms, proofs and file bytes of each phase check every lane
-end to end.
+end to end.  Wherever K-scan is held, K-reduce is held on its output, on
+the same lanes (their keys are a prefix of the sorted keys), window by
+window as affine points, and timed on the whole shape.
 
 Depths cut for the time limit (no check dropped): phase 13's chain at
 CEREMONY_CHAIN_POWER, phase 16's prepare_phase2 at PREPARE_POWER (above);
@@ -331,7 +337,8 @@ def counts():
     c = trace.counters()
     return {"field_ops": c["k_field"],
             "field_by_op": {op: c["k_field." + op] for op in fcuda.OPS},
-            "msm_scan": c["k_scan"], "digit_mm": c["k_mm"], "digit_mm_norm": c["k_mm_norm"]}
+            "msm_scan": c["k_scan"], "msm_reduce": c["k_reduce"], "digit_mm": c["k_mm"],
+            "digit_mm_norm": c["k_mm_norm"]}
 
 
 @contextlib.contextmanager
@@ -488,7 +495,7 @@ def weighted_sum(limbs, period, p):
 # ------------------------------------------------------------------ phases
 
 def phase_kernels_small(dev, gen, tables):
-    errs = {"field_ops": 0, "msm_scan": 0, "digit_mm": 0}
+    errs = {"field_ops": 0, "msm_scan": 0, "msm_reduce": 0, "digit_mm": 0}
     for name in ("bn254_fr", "bn254_fq", "bls12_381_fq"):
         ctx = ftorch.get_ctx(name)
         fp = ctx.fp
@@ -536,8 +543,9 @@ def scan_small_cases(dev, gen, tables):
     """K-scan against its plain version, word for word, on bn254 and
     bls12-381, G1 and G2 (every instantiation): cw = 8, 2^12 points over 512
     lanes; bn254 G1 also over 200 lanes (no multiple of a block's 128) and
-    with 300 points on 300 lanes (C = 1, one ragged block).  Returns the
-    largest difference (0)."""
+    with 300 points on 300 lanes (C = 1, one ragged block).  K-reduce on each
+    K-scan output against its plain version, window by window as affine
+    points.  Returns the largest difference of K-scan (0)."""
     err = 0
     bls = point_tables(hc.BLS12_381, 64, 16)
     for cv, ((gx, gy), (g2x, g2y)) in ((hc.BN254, tables), (hc.BLS12_381, bls)):
@@ -561,7 +569,11 @@ def scan_small_cases(dev, gen, tables):
                 check(e == 0, f"K-scan {cv.name} {group} {tuple(xyT.shape)} differs from "
                               f"plain ({e})")
                 err = max(err, e)
-                log(f"  K-scan {cv.name} {group} cw=8 {npts} points {tuple(xyT.shape)} == plain")
+                e = reduce_held(cv, m, got, sorted_keys(xyT), xyT.shape[3])[0]
+                check(e == 0, f"K-reduce {cv.name} {group} {tuple(got.shape)} differs from "
+                              f"plain in {e} windows")
+                log(f"  K-scan {cv.name} {group} cw=8 {npts} points {tuple(xyT.shape)} == plain; "
+                    "K-reduce's window points == plain")
     return err
 
 
@@ -827,6 +839,27 @@ def bound(nbytes, ops, rate):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def add_products(ext):
+    """Full Montgomery products over the base field in one K-reduce add
+    (msm_reduce.cu:rcb_add, the operations of rcb.rcb_add): 12 products and
+    two products by 3b, an add ladder on G1; on G2 all 14 are Fq2 products
+    of three Fq products each."""
+    return 12 if ext == 1 else 3 * 14
+
+
+def reduce_work(dsort, RL, half):
+    """(adds, rows): the complete adds phase 2 needs at least, in any order,
+    and the rows it reads.  A window of RL lanes takes RL - 1 adds for the
+    exclusive suffix of its lane totals; each of its v valid rows (v =
+    min(half, its largest magnitude): t = 1 .. v has a first sorted index
+    with |digit| >= t) one add for its lane's carry and one into the sum.
+    K-reduce makes about twice as many: its lane scan and its carry stage
+    are not work-efficient."""
+    v = (dsort[:, -1] >> 1).clamp(max=half).to(torch.int64)
+    rows = int(v.sum())
+    return int((RL - 1) * dsort.shape[0] + (2 * v - 1).clamp(min=0).sum()), rows
+
+
 def profile_busy(fn, warm_ms):
     """One run of `fn` under torch.profiler: device time per kernel, and the
     busy share as that device time over `warm_ms`, the same work's wall time
@@ -895,6 +928,76 @@ def phase_breakdown(dev, zkey, wit, prove_ms):
 HELD = collections.defaultdict(set)
 
 
+def sorted_keys(xyT):
+    """The (nw, C*RL) sorted keys K-reduce reads, at position lane*C + c,
+    from the last row of K-scan's input."""
+    nw, C, _, RL = xyT.shape
+    return xyT[:, :, -1].permute(0, 2, 1).reshape(nw, C * RL).contiguous()
+
+
+def window_points(fq, flat, ext):
+    """(3*nl*ext, nw) projective window partials -> affine host points
+    (None for the identity)."""
+    flat = ftorch.to_numpy(flat)
+    nl, nw = fq.nl, flat.shape[1]
+    ints = ftorch.np_to_ints(fq, flat.reshape(3 * ext, nl, nw).transpose(1, 0, 2))
+    at = lambda k, w: fq.from_mont(ints[k * nw + w])
+    el = lambda k, w: at(k, w) if ext == 1 else (at(2 * k, w), at(2 * k + 1, w))
+    out = []
+    for w in range(nw):
+        X, Y, Z = el(0, w), el(1, w), el(2, w)
+        if msm_mod._f_is_zero(Z, ext):
+            out.append(None)
+            continue
+        zi = msm_gpu._f_inv(fq, Z, ext)
+        out.append((msm_mod._f_mul(fq, X, zi, ext), msm_mod._f_mul(fq, Y, zi, ext)))
+    return out
+
+
+def reduce_held(cv, m, st_all, dsort, held):
+    """K-reduce against its plain version on K-scan's output and its sorted
+    keys, on the first `held` lanes (those lanes' scan is the scan of their
+    points alone, and their keys are the first held * C of `dsort`):
+    (windows whose affine points differ, plain ms)."""
+    C, RL = st_all.shape[1], st_all.shape[3]
+    if held < RL:
+        st_all, dsort = st_all[..., :held].contiguous(), dsort[:, :held * C].contiguous()
+    got = msm_gpu.reduce(cv.fq, m.b, m.ext, m.cw, st_all, dsort)
+    plain_ms, want = wall_ms(lambda: msm_gpu.reduce_plain(cv.fq, m.b, m.ext, m.cw,
+                                                          st_all, dsort))
+    got, want = window_points(cv.fq, got, m.ext), window_points(cv.fq, want, m.ext)
+    return sum(a != b for a, b in zip(got, want)), plain_ms
+
+
+def reduce_case(cv, m, st_all, dsort, calls, path, rate32, errs, held):
+    """K-reduce at the shape K-scan's output `st_all` has on a driven path
+    (`calls` MSMs there): held against its plain version (on the first
+    `held` lanes), its time on the whole shape, and its bound there from
+    `reduce_work`'s adds."""
+    nw, C, nro2, RL = st_all.shape
+    shape = tuple(st_all.shape)
+    before = trace.counters()["k_reduce"]
+    msm_gpu.reduce(cv.fq, m.b, m.ext, m.cw, st_all, dsort)
+    per = trace.counters()["k_reduce"] - before
+    check(0 < per <= 4, f"K-reduce took {per} launches an MSM")
+    ms = cuda_ms(lambda: msm_gpu.reduce(cv.fq, m.b, m.ext, m.cw, st_all, dsort), 3)
+    e, plain_ms = reduce_held(cv, m, st_all, dsort, held)
+    check(e == 0, f"K-reduce {cv.name} G{m.ext} {shape} differs from plain in {e} windows "
+                  f"on {held} lanes")
+    errs["msm_reduce"] = max(errs["msm_reduce"], e)
+    adds, rows = reduce_work(dsort, RL, m.nb // 2)
+    bms, by = bound((nw * RL + rows) * nro2 * 4,
+                    adds * add_products(m.ext) * mont_mul_imads(cv.fq.nl // 2), rate32)
+    log(f"  K-reduce {cv.name} {shape} cw={m.cw} x{calls} ({path}) == plain on {held} "
+        f"lanes: {ms:.3f} ms  plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by}, {adds} adds)")
+    out = {"path": path, "curve": cv.name, "ext": m.ext, "cw": m.cw, "shape": list(shape),
+           "launches": calls * per, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bms, "bound_by": by, "adds": adds}
+    if held < RL:
+        out.update(plain_ms=None, plain_lanes_ms=plain_ms, plain_lanes=held)
+    return out
+
+
 def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None):
     """K-scan against its plain version on the input `run` builds for these
     points and scalars (window digits of cw bits), which must have a shape
@@ -902,7 +1005,9 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None)
     the whole shape and is held against the plain version on every lane, on
     bls12-381 on its first BLS_HOLD_LANES lanes (a lane's scan reads only its
     own points); `plain_ms` is the plain version's time on the whole shape,
-    and null where it ran on fewer lanes (`plain_lanes_ms`, `plain_lanes`)."""
+    and null where it ran on fewer lanes (`plain_lanes_ms`, `plain_lanes`).
+    K-reduce on the kernel's output, held on the same lanes, under "reduce"
+    (`reduce_case`)."""
     m = msm_gpu.get_msm(cv.name, group, cw=cw)
     xyT = m.scan_input(*pts, scal, lanes=lanes)
     shape = tuple(xyT.shape)
@@ -927,6 +1032,8 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None)
            "bound_ms": bms, "bound_by": by}
     if held < shape[3]:
         out.update(plain_ms=None, plain_lanes_ms=plain_ms, plain_lanes=held)
+    out["reduce"] = reduce_case(cv, m, got, sorted_keys(xyT), seen[shape], path, rate32,
+                                errs, held)
     return out
 
 
@@ -3176,6 +3283,8 @@ def run():
     check(all(regs[k]["spill_stores"] == 0 for k in ("bn254 G1", "bn254 G2")),
           "a bn254 K-scan instantiation spills")
     log(f"  K-scan SASS of one step: {json.dumps(scan_sass_counts())}")
+    rregs = {name: msm_gpu.reduce_attributes(*k) for k, name in SCAN_INSTANCES.items()}
+    log(f"  K-reduce registers and local memory: {json.dumps(rregs)}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
@@ -3272,15 +3381,19 @@ def run():
     norm_big = dict(entries["digit_mm_norm"], path="plonk", shape=list(BIG),
                     launches=pshapes["digit_mm_norm"][BIG],
                     max_abs_err=errs["digit_mm_norm"])
+    scans = ([pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]
+             + clip["scans"] + mesh["scans"] + cw8["scans"]
+             + [e for ph in bls.values() for e in ph["scans"]])
+    # K-reduce on each K-scan entry's output (an entry listed twice gives one)
+    reduces = [r for r in (e.pop("reduce", None) for e in scans) if r]
     rows = [
         ("field_ops", "snarkjs_tpu_torch/csrc/field_ops.cu",
          "snarkjs_tpu/fields/fpal.py:449",
          dict(entries["field_ops"], shape=[16, 1 << 20]), []),
         ("msm_scan", "snarkjs_tpu_torch/csrc/msm_scan.cu",
-         "snarkjs_tpu/curves/msm_tpu.py:213", pscan,
-         [pscan] + entries["msm_scan"] + ff["scans"] + cer["scans"] + mpc["scans"]
-         + clip["scans"] + mesh["scans"] + cw8["scans"]
-         + [e for ph in bls.values() for e in ph["scans"]]),
+         "snarkjs_tpu/curves/msm_tpu.py:213", pscan, scans),
+        ("msm_reduce", "snarkjs_tpu_torch/csrc/msm_reduce.cu",
+         "snarkjs_tpu/curves/msm_tpu.py:531", reduces[0], reduces),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
@@ -3314,6 +3427,14 @@ def run():
             sum(v) for steps in k["launches_mesh"].values() for v in steps.values()),
             f"{kname} was launched on no step of the mesh path")
         kernels.append(k)
+    # every MSM runs K-scan, then K-reduce: on every path, step and rank
+    per = reduces[0]["launches"] // pscan["launches"]
+    times = lambda v, f: ({key: times(x, f) for key, x in v.items()} if isinstance(v, dict)
+                          else [times(x, f) for x in v] if isinstance(v, list) else v * f)
+    for key in kernels[1]:
+        if key.startswith("launches"):
+            check(kernels[2][key] == times(kernels[1][key], per),
+                  f"K-reduce's {key} is not {per} x K-scan's")
     kernels[0]["launches_by_op"] = pl["field_by_op"]
     kernels[0]["launches_by_op_groth16"] = launches["field_by_op"]
     kernels[0]["launches_by_op_fflonk"] = fl["prove"]["field_by_op"]
@@ -3336,6 +3457,7 @@ def run():
         log(f"bls12-381 {ph}: " + json.dumps(
             {k: v for k, v in res.items() if k not in ("scans", "norms", "field_times")}))
     kernels[1]["registers"] = regs
+    kernels[2]["registers"] = rregs
     log(f"K-scan registers, local memory and spills: {json.dumps(kernels[1]['registers'])}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

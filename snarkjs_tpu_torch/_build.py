@@ -21,7 +21,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 OUT = os.path.join(_HERE, "_build")
-SOURCES = ("field_ops", "msm_scan", "digit_mm", "digit_mm_norm")
+SOURCES = ("field_ops", "msm_scan", "msm_reduce", "digit_mm", "digit_mm_norm")
 ARCH = "arch=compute_90a,code=sm_90a"
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 

@@ -9,20 +9,24 @@ the sort key's low bit):
 2. kernel K-scan (`scan`, csrc/msm_scan.cu): every lane walks its contiguous
    chunk of C sorted points from the end, one complete mixed add per point,
    and writes the running suffix point after each step;
-3. the suffix identity sum_b b*B_b = sum_{t=1}^{2^(cw-1)} Suffix(first
-   index with |digit| >= t): `searchsorted` finds those rows, the suffix of
-   later lanes' totals (`_suffix_excl`) fixes the cross-lane carry, and a
-   halving tree (`_tree_sum`) adds them up, all as RCB adds over K-field.
+3. phase 2, kernel K-reduce (`reduce`, csrc/msm_reduce.cu): the suffix
+   identity sum_b b*B_b = sum_{t=1}^{2^(cw-1)} Suffix(first index with
+   |digit| >= t), where a binary search of 2t in the sorted keys finds each
+   row, the suffix of later lanes' totals fixes the cross-lane carry, and
+   the rows are summed: complete RCB adds in four launches an MSM, whatever
+   its size, curve or window width.
 
-All windows share one sort call, one K-scan launch and one phase 2; the
-window partials come back to the host and are combined on bigints
+All windows share one sort call, one K-scan launch and one K-reduce call;
+the window partials come back to the host and are combined on bigints
 (`_finish`).  The lane count RL is a parameter of `_program`: on the card it
 is picked so that nw * RL threads fill the SMs (`_lanes`).
 
-`scan_plain` is K-scan's plain twin; the counter `k_scan` of `trace`
-counts its launches.  Spans (`trace.span`): `msm.recode`, `msm.sort`,
-`msm.scan`, `msm.phase2`, and on the mesh `msm.gather`, then
-`msm.readback` and `msm.finish`.
+`scan_plain` and `reduce_plain` are the kernels' plain twins (phase 2 there
+is `searchsorted`, a log-doubling suffix `_suffix_excl` and a halving tree
+`_tree_sum` over the field ops, on the CPU hundreds of plain adds); the
+counters `k_scan` and `k_reduce` of `trace` count the kernels' launches.
+Spans (`trace.span`): `msm.recode`, `msm.sort`, `msm.scan`, `msm.phase2`,
+and on the mesh `msm.gather`, then `msm.readback` and `msm.finish`.
 """
 
 from __future__ import annotations
@@ -144,6 +148,17 @@ def _b3_words(fq: FieldParams, b, ext):
     return (ctypes.c_uint32 * (2 * n32))(*words)
 
 
+def _curve_args(fq: FieldParams, b, ext, what):
+    """The field and 3b arguments K-scan and K-reduce take: p, -p^-1 mod
+    2^32, R mod p, 3b (G2, Montgomery words) and 3b (G1, a small integer)."""
+    b3_small = 3 * b if ext == 1 else 0
+    if ext == 1 and not 0 < b3_small < 64:
+        raise ValueError(f"{what} G1 takes 3b as a small integer (an add ladder)")
+    p32, np0, one32 = fcuda.consts(fq)
+    return (ctypes.cast(p32, ctypes.c_void_p), np0, ctypes.cast(one32, ctypes.c_void_p),
+            ctypes.cast(_b3_words(fq, b, ext), ctypes.c_void_p), b3_small)
+
+
 def scan(fq: FieldParams, b, ext: int, xyT):
     """K-scan over (nw, C, nl*ext + 1, RL) int32 sorted packed points.
 
@@ -157,15 +172,9 @@ def scan(fq: FieldParams, b, ext: int, xyT):
     xyT = xyT.contiguous()
     out = torch.empty((nw, C, 3 * nl * ext // 2, RL), dtype=torch.int32,
                       device=xyT.device)
-    b3_small = 3 * b if ext == 1 else 0
-    if ext == 1 and not 0 < b3_small < 64:
-        raise ValueError("K-scan G1 takes 3b as a small integer (an add ladder)")
-    p32, np0, one32 = fcuda.consts(fq)
     err = _lib().snark_msm_scan(
         nl // 2, ext, xyT.data_ptr(), out.data_ptr(), nw, C, RL,
-        ctypes.cast(p32, ctypes.c_void_p), np0, ctypes.cast(one32, ctypes.c_void_p),
-        ctypes.cast(_b3_words(fq, b, ext), ctypes.c_void_p), b3_small,
-        _build.stream_ptr(xyT.device))
+        *_curve_args(fq, b, ext, "K-scan"), _build.stream_ptr(xyT.device))
     _build.check(err, "K-scan")
     trace.add("k_scan")
     return out
@@ -217,6 +226,98 @@ def _tree_sum(f, P, b3):
     return P
 
 
+def reduce_plain(fq: FieldParams, b, ext: int, cw: int, st_all, dsort):
+    """Plain twin of K-reduce: searchsorted, the rows, `_suffix_excl` and
+    `_tree_sum` over the field ops.
+
+    st_all (nw, C, 3*nl*ext/2, RL) int32 K-scan output, dsort (nw, C*RL)
+    sorted keys -> (3*nl*ext, nw) int32 window partials (16-bit limbs)."""
+    nl = fq.nl
+    nw, C, _, RL = st_all.shape
+    Np = C * RL
+    half = 1 << (cw - 1)
+    dev = st_all.device
+    ctx = ftorch.get_ctx(fq.name)
+    with ftorch.plain_versions():
+        f = field_ops(ctx, ext, dev)
+        b3 = _dev_b3(ctx, b, ext, 2, dev)
+        tvals = torch.arange(2, 2 * half + 2, 2, dtype=dsort.dtype,
+                             device=dev).expand(nw, half).contiguous()
+        fidx = torch.searchsorted(dsort, tvals)                      # (nw, half)
+        valid = fidx < Np
+        safe = fidx.clamp(max=Np - 1)
+        lane, cpos = safe // C, safe % C
+        widx = torch.arange(nw, device=dev)[:, None]
+        A = st_all[widx, cpos, :, lane]                              # (nw, half, nro/2)
+        totP = _unflat(unpack_rows(st_all[:, 0].permute(1, 0, 2)), nl, ext)
+        carry = _suffix_excl(f, totP, b3)
+        Cr = _map(lambda a: a[:, widx, lane], carry)
+        Ap = _unflat(unpack_rows(A.permute(2, 0, 1)), nl, ext)
+        S = rcb.rcb_add(f, Ap, Cr, b3)
+        S = rcb.rcb_select(f, valid, S, rcb.rcb_zero(f, (1, 1)))
+        W = _tree_sum(f, S, b3)                                     # half = 2^(cw-1)
+        return _flat(_map(lambda a: a[..., 0], W), ext)
+
+
+@functools.lru_cache(maxsize=None)
+def _reduce_lib():
+    lib = _build.library("msm_reduce")
+    lib.snark_msm_reduce.restype = ctypes.c_int
+    lib.snark_msm_reduce.argtypes = (
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_int, ctypes.c_void_p])
+    lib.snark_msm_reduce_scratch.restype = ctypes.c_longlong
+    lib.snark_msm_reduce_scratch.argtypes = [ctypes.c_int] * 5
+    lib.snark_msm_reduce_launches.restype = ctypes.c_int
+    lib.snark_msm_reduce_launches.argtypes = []
+    lib.snark_msm_reduce_attributes.restype = ctypes.c_int
+    lib.snark_msm_reduce_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    return lib
+
+
+def reduce(fq: FieldParams, b, ext: int, cw: int, st_all, dsort):
+    """K-reduce: phase 2 of the MSM, K-scan's output (nw, C, 3*nl*ext/2, RL)
+    int32 and the sorted keys (nw, C*RL) -> (3*nl*ext, nw) int32 window
+    partials (16-bit limbs).
+
+    CUDA tensors launch the kernel; CPU tensors take `reduce_plain`.  The
+    projective words differ from the twin's (another order of adds); the
+    points are the same."""
+    if not ftorch.use_kernel(st_all):
+        return reduce_plain(fq, b, ext, cw, st_all, dsort)
+    nl = fq.nl
+    nw, C, nro2, RL = st_all.shape
+    if st_all.dtype != torch.int32 or nro2 != 3 * nl * ext // 2:
+        raise ValueError("K-reduce takes int32 (nw, C, 3*nl*ext/2, RL) rows")
+    if tuple(dsort.shape) != (nw, C * RL) or dsort.dtype != torch.int32:
+        raise ValueError("K-reduce takes (nw, C*RL) int32 sorted keys")
+    st_all, dsort = st_all.contiguous(), dsort.contiguous()
+    half = 1 << (cw - 1)
+    lib = _reduce_lib()
+    words = lib.snark_msm_reduce_scratch(nl // 2, ext, nw, RL, half)
+    if words < 0:
+        raise ValueError(f"K-reduce has no instantiation for {nl // 2} words")
+    scratch = torch.empty(words, dtype=torch.int32, device=st_all.device)
+    out = torch.empty((3 * nl * ext, nw), dtype=torch.int32, device=st_all.device)
+    err = lib.snark_msm_reduce(
+        nl // 2, ext, st_all.data_ptr(), dsort.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), nw, C, RL, half, *_curve_args(fq, b, ext, "K-reduce"),
+        _build.stream_ptr(st_all.device))
+    _build.check(err, "K-reduce")
+    trace.add("k_reduce", lib.snark_msm_reduce_launches())
+    return out
+
+
+def reduce_attributes(n32: int, ext: int) -> dict:
+    """Registers and local memory (spills and stack) a thread of the K-reduce
+    instantiation for (n32, ext), as the loaded library holds it."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_reduce_lib().snark_msm_reduce_attributes(
+        n32, ext, ctypes.byref(regs), ctypes.byref(local)), "K-reduce attributes")
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
 def _lanes(nw: int, n: int, device) -> int:
     """Scan width.  On the CPU about sqrt(n) lanes, at most 128 (the plain
     phase 2 costs lanes x windows adds); on the card enough that nw * RL
@@ -239,7 +340,6 @@ class GpuMSM:
         self.ext = ext
         self.cw = cw
         self.nb = 1 << cw
-        self.ctx = ftorch.get_ctx(fq.name)
 
     def _xy_packed(self, px, py):
         """Affine coords as (nl*ext, n) int32 words, two limbs per word."""
@@ -249,50 +349,20 @@ class GpuMSM:
             rows = torch.cat([px[0], px[1], py[0], py[1]], dim=0)
         return pack_rows(rows)
 
-    def _program(self, C: int, RL: int, nw: int, device):
+    def _program(self, C: int, RL: int, nw: int):
         """The device MSM over exactly C*RL points: window partials (nro, nw)."""
         fq, ext = self.fq, self.ext
-        nl = fq.nl
-        Np = C * RL
-        half = self.nb // 2
-        f = field_ops(self.ctx, ext, device)
-
-        def window_scan(keys, px, py):
-            with trace.span("msm.sort"):
-                xyp = self._xy_packed(px, py)
-                xyT, dsort = self._sorted(keys, xyp, C, RL)
-            with trace.span("msm.scan"):
-                st_all = scan(fq, self.b, ext, xyT)                  # (nw, C, nro/2, RL)
-                tot = st_all[:, 0]                                   # lane totals
-                tvals = torch.arange(2, 2 * half + 2, 2, dtype=dsort.dtype,
-                                     device=device).expand(nw, half).contiguous()
-                fidx = torch.searchsorted(dsort, tvals)              # (nw, half)
-                valid = fidx < Np
-                safe = fidx.clamp(max=Np - 1)
-                lane, cpos = safe // C, safe % C
-                widx = torch.arange(nw, device=device)[:, None]
-                A = st_all[widx, cpos, :, lane]                      # (nw, half, nro/2)
-            return A, tot, lane, valid
-
-        def phase2(A, tot, lane, valid):
-            b3 = _dev_b3(self.ctx, self.b, ext, 2, device)
-            totP = _unflat(unpack_rows(tot.permute(1, 0, 2)), nl, ext)
-            carry = _suffix_excl(f, totP, b3)
-            widx = torch.arange(nw, device=device)[:, None]
-            Cr = _map(lambda a: a[:, widx, lane], carry)
-            Ap = _unflat(unpack_rows(A.permute(2, 0, 1)), nl, ext)
-            S = rcb.rcb_add(f, Ap, Cr, b3)
-            S = rcb.rcb_select(f, valid, S, rcb.rcb_zero(f, (1, 1)))
-            W = _tree_sum(f, S, b3)                                 # half = 2^(cw-1)
-            return _flat(_map(lambda a: a[..., 0], W), ext)
 
         def msm_all(px, py, pinf, scalars):
             with trace.span("msm.recode"):
                 keys = self._keys(pinf, scalars)
             assert keys.shape[0] == nw
-            scanned = window_scan(keys, px, py)
+            with trace.span("msm.sort"):
+                xyT, dsort = self._sorted(keys, self._xy_packed(px, py), C, RL)
+            with trace.span("msm.scan"):
+                st_all = scan(fq, self.b, ext, xyT)                  # (nw, C, nro/2, RL)
             with trace.span("msm.phase2"):
-                return phase2(*scanned)
+                return reduce(fq, self.b, ext, self.cw, st_all, dsort)
 
         return msm_all
 
@@ -345,7 +415,7 @@ class GpuMSM:
         RL = _lanes(nw, n, device)
         C = max(1, -(-n // RL))
         px, py, pinf, scalars = _pad_to(C * RL, px, py, pinf, scalars)
-        flatW = self._program(C, RL, nw, device)(px, py, pinf, scalars)
+        flatW = self._program(C, RL, nw)(px, py, pinf, scalars)
         return self._read_and_finish(flatW)
 
     def run_sharded(self, mesh, px, py, pinf, scalars):
@@ -368,7 +438,7 @@ class GpuMSM:
         RL = _lanes(nw, per, device)
         C = max(1, -(-per // RL))
         px, py, pinf, scal = _pad_to(C * RL, px, py, pinf, scalars[:, sl])
-        flatW = self._program(C, RL, nw, device)(px, py, pinf, scal)   # (nro, nw)
+        flatW = self._program(C, RL, nw)(px, py, pinf, scal)   # (nro, nw)
         with trace.span("msm.gather"):
             parts = pdist.all_gather(mesh, flatW)                       # (ndev, nro, nw)
         return self._read_and_finish(parts.permute(1, 2, 0))

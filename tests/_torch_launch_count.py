@@ -8,8 +8,11 @@ Every call of `ftorch.add/sub/mont_mul/neg` is one K-field launch on the card.
 What differs on the CPU is replaced by the card's count: each NTT by the
 digit-matmul route's (sizes 2^11 .. 2^20: two K-mm-norm stages and two
 twiddle products), each MSM by one cw = 16 G1 MSM's over 8192 lanes (counted
-with `--msm`; its phase 2 does not depend on the point count from 8192
-points up).  Every scan of the prover is log2 of its length deep, so the
+with `--msm`).  An MSM's phase 2 is K-reduce on the card, four launches and
+no K-field launch; on the CPU its plain twin runs hundreds of plain field
+ops, so `--msm` counts K-reduce's four in its place, and a count of the
+plain ops of an MSM no longer stands for the card's.  Every scan of the
+prover is log2 of its length deep, so the
 counts at 2^5 and 2^6 extrapolate linearly in log2 n; at 2^18 each of the 33
 evaluations also takes a second `fops.field_sum` round (lengths > 2^14),
 three products and one add.
@@ -76,6 +79,7 @@ def msm_counts(points=9000) -> dict:
     lanes = msm_gpu._lanes
     msm_gpu._lanes = lambda nw, n, device: lanes(nw, n, torch.device("cuda"))
     msm_gpu.scan = _replaced(msm_gpu.scan, {"msm_scan": 1})
+    msm_gpu.reduce = _replaced(msm_gpu.reduce, {"msm_reduce": 4})
     cv = hc.BN254
     (gx, gy), _ = _chip_smoke().point_tables(cv, 64, 1)
     tiled = lambda t: ftorch.to_tensor(np.tile(t, (1, -(-points // 64)))[:, :points], "cpu")

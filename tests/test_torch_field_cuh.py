@@ -1,12 +1,16 @@
-"""The card's field arithmetic (csrc/field.cuh) and K-scan's mixed add
-(csrc/msm_scan.cu), compiled for the host with g++.
+"""The card's field arithmetic (csrc/field.cuh), K-scan's mixed add
+(csrc/msm_scan.cu) and K-reduce's kernel (csrc/msm_reduce.cu, four stages),
+compiled for the host with g++.
 
 The sources are CUDA; what keeps them from a host compiler is only the PTX of
 the carry-chain steps and the kernel around the mixed add.  Here each carry
 step becomes a C function on an explicit carry flag, the same source is
 compiled as C++, and its results are held against Python bigints (fadd,
 fsub, fneg, fmul, fmul with a wide operand) and against `msm_gpu.scan_plain`
-(the scan step by step, y negated on signed lanes), word for word.
+(the scan step by step, y negated on signed lanes), word for word.  K-reduce's
+stages run whole, each block as LB threads of the host meeting at a barrier
+for `__syncthreads()`, blocks one after another, and their window partials
+are held against `msm_gpu.reduce_plain` as affine points.
 """
 
 import os
@@ -212,3 +216,149 @@ def test_msm_scan_step_matches_scan_plain(host_prog, case):
                             xyT.numpy().view(np.uint32).ravel()])
     got = host_prog(mode, words).reshape(want.shape)
     np.testing.assert_array_equal(got, want.numpy().view(np.uint32))
+
+
+# ------------------------------------------------------------- K-reduce
+
+REDUCE_SHIM = r"""
+#define __device__
+#define __forceinline__ inline
+#define __global__
+#define __shared__ static
+#define __launch_bounds__(...)
+#include <condition_variable>
+#include <cstdio>
+#include <cstdlib>
+#include <mutex>
+#include <thread>
+#include <type_traits>
+#include <vector>
+struct Dim { unsigned x; };
+static thread_local Dim threadIdx, blockIdx;
+struct Barrier {
+  std::mutex m; std::condition_variable cv; int n, waiting = 0; long gen = 0;
+  explicit Barrier(int n) : n(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> l(m);
+    const long g = gen;
+    if (++waiting == n) { waiting = 0; gen++; cv.notify_all(); }
+    else cv.wait(l, [&] { return gen != g; });
+  }
+};
+static thread_local Barrier* block_barrier;
+#define __syncthreads() block_barrier->wait()
+"""
+
+REDUCE_MAIN = r"""
+static void rd(FILE* f, void* x, size_t n) { if (fread(x, 4, n, f) != n) exit(3); }
+
+// a launch: blocks one after another, each as LB threads
+template <typename F>
+static void grid(int blocks, F kernel) {
+  for (int b = 0; b < blocks; b++) {
+    Barrier bar(LB);
+    std::vector<std::thread> ts;
+    for (int t = 0; t < LB; t++)
+      ts.emplace_back([&, b, t] { blockIdx.x = b; threadIdx.x = t; block_barrier = &bar; kernel(); });
+    for (auto& th : ts) th.join();
+  }
+}
+
+template <int N, int EXT>
+int run_reduce(FILE* f, FILE* o) {
+  RedP<N> P; rd(f, P.f.p, N); rd(f, &P.f.np0, 1); rd(f, P.f.one, N);
+  rd(f, P.b3.c0.v, N); rd(f, P.b3.c1.v, N);
+  uint32_t s; rd(f, &s, 1); P.b3_small = (int)s;
+  uint32_t d[4]; rd(f, d, 4);
+  const int nw = d[0], C = d[1], RL = d[2], half = d[3];
+  constexpr int NO = 3 * N * EXT;
+  std::vector<uint32_t> st((size_t)nw * C * NO * RL);
+  std::vector<int32_t> keys((size_t)nw * C * RL);
+  rd(f, st.data(), st.size()); rd(f, keys.data(), keys.size());
+  const Sizes z = sizes(NO, nw, RL, half);
+  std::vector<uint32_t> scratch(z.carry + z.btot + z.part), out((size_t)3 * EXT * 2 * N * nw);
+  Args a{st.data(), keys.data(), scratch.data(), scratch.data() + z.carry,
+         scratch.data() + z.carry + z.btot, out.data(), nw, C, RL, half, z.NB, z.NRB};
+  const int grids[4] = {nw * z.NB, nw * z.NB, nw * z.NRB, nw};
+  for (int stage = 0; stage < 4; stage++)
+    grid(grids[stage], [&] { reduce_kernel<N, EXT>(a, P, stage); });
+  fwrite(out.data(), 4, out.size(), o);
+  return 0;
+}
+
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[2], "rb");
+  FILE* o = fopen(argv[3], "wb");
+  switch (atoi(argv[1])) {
+    case 0: return run_reduce<8, 1>(f, o);
+    case 1: return run_reduce<8, 2>(f, o);
+    case 2: return run_reduce<12, 1>(f, o);
+    case 3: return run_reduce<12, 2>(f, o);
+  }
+  return 1;
+}
+"""
+
+
+def _reduce_source():
+    """field.cuh with the carry steps as C functions on a carry flag of each
+    thread, then msm_reduce.cu from its constants to its launcher (left out)."""
+    with open(os.path.join(CSRC, "field.cuh")) as f:
+        field = f.read()
+    with open(os.path.join(CSRC, "msm_reduce.cu")) as f:
+        red = f.read()
+    a = field.index("// ------------------------------------------------------------- carry chains")
+    b = field.index("// -------------------------------------------------------------- boundary I/O")
+    steps = CARRY_STEPS.replace("static uint32_t CF;", "static thread_local uint32_t CF;")
+    field = field[:a] + steps + field[b:]
+    body = red[red.index("constexpr int LB"):red.index("template <int N, int EXT>\ncudaError_t launch_ext")]
+    body = body.replace("__noinline__", "__attribute__((noinline))")
+    return REDUCE_SHIM + field.replace("#pragma once", "") + "\nnamespace {\n" + body + REDUCE_MAIN.replace(
+        "int main(", "}\nint main(", 1)
+
+
+@pytest.fixture(scope="module")
+def reduce_prog(tmp_path_factory):
+    d = tmp_path_factory.mktemp("msm_reduce")
+    src = d / "msm_reduce.cpp"
+    src.write_text(_reduce_source())
+    cxx = shutil.which("g++") or shutil.which("c++")
+    assert cxx, "no host C++ compiler"
+    out = subprocess.run([cxx, "-O1", "-std=c++17", "-w", "-pthread", "-o", str(d / "prog"),
+                          str(src)], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+    def run(mode, words):
+        words.tofile(d / "in.bin")
+        subprocess.run([str(d / "prog"), str(mode), str(d / "in.bin"), str(d / "out.bin")],
+                       check=True, timeout=300)
+        return np.fromfile(d / "out.bin", dtype=np.uint32)
+
+    return run
+
+
+REDUCES = {"g1_bn254": ("bn254", 1, 0), "g2_bn254": ("bn254", 2, 1),
+           "g1_bls12_381": ("bls12_381", 1, 2), "g2_bls12_381": ("bls12_381", 2, 3)}
+
+
+@pytest.mark.parametrize("case", sorted(REDUCES))
+def test_msm_reduce_kernels_match_reduce_plain(reduce_prog, case):
+    """K-reduce's four kernels over a cw = 10 input of 100 points on 70
+    lanes (two lane blocks, the second ragged; two row blocks; whole lanes
+    of padding), against the plain twin, window by window as affine points."""
+    from tests.test_torch_msm_reduce import CURVES, affine_windows, reduce_input
+
+    curve, ext, mode = REDUCES[case]
+    cv = CURVES[curve]
+    fq = cv.fq
+    st_all, dsort, _, m = reduce_input(curve, ext, 10, 100, 70, "cpu", rows=4)
+    nw, C, _, RL = st_all.shape
+    want = msm_gpu.reduce_plain(fq, m.b, ext, 10, st_all, dsort)
+    p32, np0, one32 = fcuda.consts(fq)
+    head = (list(p32) + [np0] + list(one32) + list(msm_gpu._b3_words(fq, m.b, ext))
+            + [3 * m.b if ext == 1 else 0, nw, C, RL, 1 << 9])
+    words = np.concatenate([np.asarray(head, dtype=np.uint32),
+                            st_all.numpy().view(np.uint32).ravel(),
+                            dsort.numpy().view(np.uint32).ravel()])
+    got = reduce_prog(mode, words).reshape(want.shape)
+    assert affine_windows(fq, got, ext) == affine_windows(fq, want, ext)

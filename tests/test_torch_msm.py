@@ -109,8 +109,7 @@ def test_msm_matches_tpu_msm_and_host(case):
         *jnp_pad(px, py, pinf, scal, 2 * msm_tpu.LN)))
     tin = msm_gpu._pad_to(2 * msm_gpu.LN, _tensor(px), _tensor(py),
                           torch.from_numpy(pinf), _tensor(scal))
-    tflat = ftorch.to_numpy(tm._program(2, msm_gpu.LN, tm.n_windows(NW),
-                                            torch.device("cpu"))(*tin))
+    tflat = ftorch.to_numpy(tm._program(2, msm_gpu.LN, tm.n_windows(NW))(*tin))
     assert _affine_windows(cv.fq, tflat, ext) == _affine_windows(cv.fq, jflat, ext)
 
     # the full MSM against both references

@@ -33,7 +33,7 @@ TREE = ([("groth16.prove", None), ("prove.witness_upload", "groth16.prove"),
         + [("prove.affine", "groth16.prove"), ("prove.blind", "groth16.prove")])
 # an op that runs only inside one leaf span of the prove
 ONLY_IN = {"aten::index_add_": "qap.build_abc", "aten::sort": "msm.sort",
-           "aten::searchsorted": "msm.scan"}
+           "aten::searchsorted": "msm.phase2"}
 
 
 class _Lines:
