@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import device as devmod
+from .. import trace
 from ..curves import host_curve as hc
 from ..curves import msm as msm_mod
 from ..fields import ftorch
@@ -328,69 +329,80 @@ def _prove_rounds(zk, witness, b, logger, device, mesh=None, msm_c: int = 8,
     """The five rounds of `prove`.  Returns (proof, publics, polys): polys
     holds the device tensors (Montgomery coefficients) of the blinded
     polynomials A, B, C, Z, the quotient parts T1, T2, T3 and the opening
-    quotients Wxi, Wxiw, for checks of a proof against its polynomials."""
+    quotients Wxi, Wxiw, for checks of a proof against its polynomials.
+
+    The root span `plonk.prove` of `trace` (recorded under the torch
+    profiler): `plonk.witness`, then each round's polynomial work
+    (`plonk.wires`, `plonk.perm`, `plonk.quotient`, `plonk.evals`,
+    `plonk.open`) and after it the round's commitments, one `msm` span each
+    (their children in `curves/msm_gpu.py`), and `prove.logger` at each
+    logger line: "Round N: ..." before a round, "Multiexp X" before the
+    commitment X."""
     dev = devmod.resolve(device)
+    if witness.q != zk.curve.fr.p:
+        raise ValueError("witness curve does not match proving key")
+    if witness.n != zk.n_vars - zk.n_additions:
+        raise ValueError("invalid witness length")
+
+    def log(msg):
+        if logger:
+            with trace.span("prove.logger"):
+                logger.debug(msg)
+
+    with trace.root("plonk.prove", curve=zk.curve.name, domain=zk.domain_size):
+        return _rounds(zk, witness, b, log, dev, mesh, msm_c, msm_cw)
+
+
+def _rounds(zk, witness, b, log, dev, mesh, msm_c, msm_cw):
     cv = zk.curve
     fr = cv.fr
     p = fr.p
     ctx = ftorch.get_ctx(fr.name)
     n = zk.domain_size
     nl = fr.nl
-
-    if witness.q != p:
-        raise ValueError("witness curve does not match proving key")
-    if witness.n != zk.n_vars - zk.n_additions:
-        raise ValueError("invalid witness length")
-
-    if b is None:
-        b = draw_once(mesh, lambda: [secrets.randbelow(p) for _ in range(12)])  # b[1..11]
-    sc = lambda v: fops.scalar_arr(ctx, v, dev)
-    bm = [None] + [sc(x) for x in b[1:12]]
     zeros = lambda k: torch.zeros((nl, k), dtype=ftorch.DTYPE, device=dev)
     mul = lambda a, bb: ftorch.mont_mul(ctx, a, bb)
     add = lambda a, bb: ftorch.add(ctx, a, bb)
     sub = lambda a, bb: ftorch.sub(ctx, a, bb)
-
-    M = min(n + 6, zk.ptau[2].shape[0])
-    key = _dev_key(zk, dev, M, mesh)
+    sc = lambda v: fops.scalar_arr(ctx, v, dev)
 
     # --- witness incl. additions (reference calculateAdditions :174-204) ---
-    wit = ftorch.to_tensor(witness.values, dev)
-    wit[:, 0] = 0  # first element forced to zero (:96)
-    if zk.n_additions:
-        # an addition may reference an earlier one: a sequential loop
-        buf = torch.cat([wit, zeros(zk.n_additions + 1)], dim=1)
-        ia, ib = key["add_a"].tolist(), key["add_b"].tolist()
-        af, bfac = key["add_af"], key["add_bf"]
-        nw = witness.n
-        for k in range(zk.n_additions):
-            buf[:, nw + k] = add(mul(af[:, k], buf[:, ia[k]]),
-                                 mul(bfac[:, k], buf[:, ib[k]]))
-        full_wit = buf[:, :zk.n_vars]
-    else:
-        full_wit = wit
+    with trace.span("plonk.witness"):
+        if b is None:
+            b = draw_once(mesh, lambda: [secrets.randbelow(p) for _ in range(12)])  # b[1..11]
+        bm = [None] + [sc(x) for x in b[1:12]]
+        M = min(n + 6, zk.ptau[2].shape[0])
+        key = _dev_key(zk, dev, M, mesh)
+        wit = ftorch.to_tensor(witness.values, dev)
+        wit[:, 0] = 0  # first element forced to zero (:96)
+        if zk.n_additions:
+            # an addition may reference an earlier one: a sequential loop
+            buf = torch.cat([wit, zeros(zk.n_additions + 1)], dim=1)
+            ia, ib = key["add_a"].tolist(), key["add_b"].tolist()
+            af, bfac = key["add_af"], key["add_bf"]
+            nw = witness.n
+            for k in range(zk.n_additions):
+                buf[:, nw + k] = add(mul(af[:, k], buf[:, ia[k]]),
+                                     mul(bfac[:, k], buf[:, ib[k]]))
+            full_wit = buf[:, :zk.n_vars]
+        else:
+            full_wit = wit
+        publics = ftorch.np_to_ints(fr, full_wit[:, 1:zk.n_public + 1])
 
-    publics = ftorch.np_to_ints(fr, full_wit[:, 1:zk.n_public + 1])
+    fqctx = ftorch.get_ctx(cv.fq.name)
+    g1m = msm_mod.MSMContext(fqctx, cv.fq, extension=1)
+    dptx, dpty, dptinf = key["ptau"]
 
-    # --- round 1: wire polynomials -------------------------------------
-    if logger:
-        logger.debug("Round 1: wire polynomials + commitments")
-
-    def gather_wires(amap):
-        # map arrays are nConstraints long; pad to the domain with zeros
-        vals = torch.cat([full_wit[:, amap], zeros(n - amap.shape[0])], dim=1)
-        return ftorch.to_mont(ctx, vals)
-
-    buffA = gather_wires(key["a_map"])
-    buffB = gather_wires(key["b_map"])
-    buffC = gather_wires(key["c_map"])
-
-    polA = nttmod.intt(ctx, buffA)
-    polB = nttmod.intt(ctx, buffB)
-    polC = nttmod.intt(ctx, buffC)
-    evalA = nttmod.extend_evaluations(ctx, polA, 4)
-    evalB = nttmod.extend_evaluations(ctx, polB, 4)
-    evalC = nttmod.extend_evaluations(ctx, polC, 4)
+    def commit(name, coefs):
+        # every commitment is padded to one length M (the longest, T3's n+6)
+        log(f"Multiexp {name}")
+        m = coefs.shape[1]
+        with trace.span("msm", name=name, points=m):
+            if m > M:
+                raise ValueError(f"commitment degree {m} exceeds SRS length {M}")
+            scal = fops.pad_to(ftorch.from_mont(ctx, coefs), M)
+            res = g1m.run(dptx, dpty, dptinf, scal, c=msm_c, cw=msm_cw, mesh=mesh)
+            return msm_mod.host_jac_to_affine(cv.fq, res, 1)
 
     def blind(pol, bs):
         # blindCoefficients: adds bs[i] at X^(n+i) and subtracts it at X^i
@@ -401,300 +413,307 @@ def _prove_rounds(zk, witness, b, logger, device, mesh=None, msm_c: int = 8,
             ext[:, i] = sub(ext[:, i], bb[:, 0])
         return ext
 
-    polA_b = blind(polA, (bm[2], bm[1]))
-    polB_b = blind(polB, (bm[4], bm[3]))
-    polC_b = blind(polC, (bm[6], bm[5]))
+    # --- round 1: wire polynomials -------------------------------------
+    log("Round 1: wire polynomials + commitments")
+    with trace.span("plonk.wires"):
+        def gather_wires(amap):
+            # map arrays are nConstraints long; pad to the domain with zeros
+            vals = torch.cat([full_wit[:, amap], zeros(n - amap.shape[0])], dim=1)
+            return ftorch.to_mont(ctx, vals)
 
-    fqctx = ftorch.get_ctx(cv.fq.name)
-    g1m = msm_mod.MSMContext(fqctx, cv.fq, extension=1)
-    dptx, dpty, dptinf = key["ptau"]
+        buffA = gather_wires(key["a_map"])
+        buffB = gather_wires(key["b_map"])
+        buffC = gather_wires(key["c_map"])
 
-    def commit(coefs):
-        # every commitment is padded to one length M (the longest, T3's n+6)
-        m = coefs.shape[1]
-        if m > M:
-            raise ValueError(f"commitment degree {m} exceeds SRS length {M}")
-        scal = fops.pad_to(ftorch.from_mont(ctx, coefs), M)
-        res = g1m.run(dptx, dpty, dptinf, scal, c=msm_c, cw=msm_cw, mesh=mesh)
-        return msm_mod.host_jac_to_affine(cv.fq, res, 1)
+        polA = nttmod.intt(ctx, buffA)
+        polB = nttmod.intt(ctx, buffB)
+        polC = nttmod.intt(ctx, buffC)
+        evalA = nttmod.extend_evaluations(ctx, polA, 4)
+        evalB = nttmod.extend_evaluations(ctx, polB, 4)
+        evalC = nttmod.extend_evaluations(ctx, polC, 4)
 
-    commitA = commit(polA_b)
-    commitB = commit(polB_b)
-    commitC = commit(polC_b)
+        polA_b = blind(polA, (bm[2], bm[1]))
+        polB_b = blind(polB, (bm[4], bm[3]))
+        polC_b = blind(polC, (bm[6], bm[5]))
+
+    commitA = commit("A", polA_b)
+    commitB = commit("B", polB_b)
+    commitC = commit("C", polC_b)
 
     # --- round 2: permutation grand product ----------------------------
-    if logger:
-        logger.debug("Round 2: permutation grand product Z")
-    vk_pts = {"Qm": zk.qm, "Ql": zk.ql, "Qr": zk.qr, "Qo": zk.qo, "Qc": zk.qc,
-              "S1": zk.s1, "S2": zk.s2, "S3": zk.s3}
-    t = Transcript(cv)
-    for name in ("Qm", "Ql", "Qr", "Qo", "Qc", "S1", "S2", "S3"):
-        t.add_poly(vk_pts[name])
-    for w in publics:
-        t.add_scalar(w)
-    t.add_poly(commitA)
-    t.add_poly(commitB)
-    t.add_poly(commitC)
-    beta = t.challenge()
-    t.reset()
-    t.add_scalar(beta)
-    gamma = t.challenge()
+    log("Round 2: permutation grand product Z")
+    with trace.span("plonk.perm"):
+        vk_pts = {"Qm": zk.qm, "Ql": zk.ql, "Qr": zk.qr, "Qo": zk.qo, "Qc": zk.qc,
+                  "S1": zk.s1, "S2": zk.s2, "S3": zk.s3}
+        t = Transcript(cv)
+        for name in ("Qm", "Ql", "Qr", "Qo", "Qc", "S1", "S2", "S3"):
+            t.add_poly(vk_pts[name])
+        for w in publics:
+            t.add_scalar(w)
+        t.add_poly(commitA)
+        t.add_poly(commitB)
+        t.add_poly(commitC)
+        beta = t.challenge()
+        t.reset()
+        t.add_scalar(beta)
+        gamma = t.challenge()
 
-    sig1c, sig1e = key["sigma1"]
-    sig2c, sig2e = key["sigma2"]
-    sig3c, sig3e = key["sigma3"]
+        sig1c, sig1e = key["sigma1"]
+        sig2c, sig2e = key["sigma2"]
+        sig3c, sig3e = key["sigma3"]
 
-    beta_m = sc(beta)
-    gamma_m = sc(gamma)
-    k1_m = sc(zk.k1)
-    k2_m = sc(zk.k2)
-    wpow = fops.powers_of(ctx, sc(fr.w[zk.power]), n)
+        beta_m = sc(beta)
+        gamma_m = sc(gamma)
+        k1_m = sc(zk.k1)
+        k2_m = sc(zk.k2)
+        wpow = fops.powers_of(ctx, sc(fr.w[zk.power]), n)
 
-    betaw = mul(beta_m, wpow)
-    num = add(add(buffA, betaw), gamma_m)
-    num = mul(num, add(add(buffB, mul(k1_m, betaw)), gamma_m))
-    num = mul(num, add(add(buffC, mul(k2_m, betaw)), gamma_m))
+        betaw = mul(beta_m, wpow)
+        num = add(add(buffA, betaw), gamma_m)
+        num = mul(num, add(add(buffB, mul(k1_m, betaw)), gamma_m))
+        num = mul(num, add(add(buffC, mul(k2_m, betaw)), gamma_m))
 
-    den = add(add(buffA, mul(sig1e[:, ::4], beta_m)), gamma_m)
-    den = mul(den, add(add(buffB, mul(sig2e[:, ::4], beta_m)), gamma_m))
-    den = mul(den, add(add(buffC, mul(sig3e[:, ::4], beta_m)), gamma_m))
+        den = add(add(buffA, mul(sig1e[:, ::4], beta_m)), gamma_m)
+        den = mul(den, add(add(buffB, mul(sig2e[:, ::4], beta_m)), gamma_m))
+        den = mul(den, add(add(buffC, mul(sig3e[:, ::4], beta_m)), gamma_m))
 
-    ratio = mul(num, ftorch.batch_inverse(ctx, den, axis=1))
-    zprod = ftorch.assoc_scan(mul, ratio)
-    buffZ = torch.cat([ctx.one((1,), dev), zprod[:, :-1]], dim=1)
-    # copy-constraint check: full product must be 1 (reference :434-436)
-    if ftorch.np_to_ints(fr, ftorch.from_mont(ctx, zprod[:, -1:].contiguous()))[0] != 1:
-        raise RuntimeError("Copy constraints do not match")
+        ratio = mul(num, ftorch.batch_inverse(ctx, den, axis=1))
+        zprod = ftorch.assoc_scan(mul, ratio)
+        buffZ = torch.cat([ctx.one((1,), dev), zprod[:, :-1]], dim=1)
+        # copy-constraint check: full product must be 1 (reference :434-436)
+        if ftorch.np_to_ints(fr, ftorch.from_mont(ctx, zprod[:, -1:].contiguous()))[0] != 1:
+            raise RuntimeError("Copy constraints do not match")
 
-    polZ = nttmod.intt(ctx, buffZ)
-    evalZ = nttmod.extend_evaluations(ctx, polZ, 4)
-    polZ_b = blind(polZ, (bm[9], bm[8], bm[7]))
-    commitZ = commit(polZ_b)
+        polZ = nttmod.intt(ctx, buffZ)
+        evalZ = nttmod.extend_evaluations(ctx, polZ, 4)
+        polZ_b = blind(polZ, (bm[9], bm[8], bm[7]))
+
+    commitZ = commit("Z", polZ_b)
 
     # --- round 3: quotient ---------------------------------------------
-    if logger:
-        logger.debug("Round 3: quotient T1/T2/T3")
-    t.reset()
-    t.add_scalar(beta)
-    t.add_scalar(gamma)
-    t.add_poly(commitZ)
-    alpha = t.challenge()
-    alpha_m = sc(alpha)
-    alpha2_m = sc(alpha * alpha % p)
+    log("Round 3: quotient T1/T2/T3")
+    with trace.span("plonk.quotient"):
+        t.reset()
+        t.add_scalar(beta)
+        t.add_scalar(gamma)
+        t.add_poly(commitZ)
+        alpha = t.challenge()
+        alpha_m = sc(alpha)
+        alpha2_m = sc(alpha * alpha % p)
 
-    qle = key["ql"][1]
-    qre = key["qr"][1]
-    qme = key["qm"][1]
-    qoe = key["qo"][1]
-    qce = key["qc"][1]
+        qle = key["ql"][1]
+        qre = key["qr"][1]
+        qme = key["qm"][1]
+        qoe = key["qo"][1]
+        qce = key["qc"][1]
 
-    n4 = 4 * n
-    w4pow = fops.powers_of(ctx, sc(fr.w[zk.power + 2]), n4)
-    zw4 = torch.roll(evalZ, -4, dims=1)
+        n4 = 4 * n
+        w4pow = fops.powers_of(ctx, sc(fr.w[zk.power + 2]), n4)
+        zw4 = torch.roll(evalZ, -4, dims=1)
 
-    # Lagrange evaluation blocks: zk.lagrange is nPublic x (n + 4n)
-    lag_all = key["lagrange"]
-    lag4 = [lag_all[:, i * 5 * n + n:(i + 1) * 5 * n] for i in range(zk.n_public)]
-    lag1_4n = (lag4[0] if zk.n_public > 0
-               else nttmod.extend_evaluations(ctx, nttmod.intt(ctx, torch.cat(
-                   [ctx.one((1,), dev), zeros(n - 1)], dim=1)), 4))
+        # Lagrange evaluation blocks: zk.lagrange is nPublic x (n + 4n)
+        lag_all = key["lagrange"]
+        lag4 = [lag_all[:, i * 5 * n + n:(i + 1) * 5 * n] for i in range(zk.n_public)]
+        lag1_4n = (lag4[0] if zk.n_public > 0
+                   else nttmod.extend_evaluations(ctx, nttmod.intt(ctx, torch.cat(
+                       [ctx.one((1,), dev), zeros(n - 1)], dim=1)), 4))
 
-    ap = add(bm[2], mul(bm[1], w4pow))
-    bp = add(bm[4], mul(bm[3], w4pow))
-    cp = add(bm[6], mul(bm[5], w4pow))
-    w2 = mul(w4pow, w4pow)
-    zp = add(add(mul(bm[7], w2), mul(bm[8], w4pow)), bm[9])
-    wW = mul(w4pow, sc(fr.w[zk.power]))
-    wW2 = mul(wW, wW)
-    zWp = add(add(mul(bm[7], wW2), mul(bm[8], wW)), bm[9])
+        ap = add(bm[2], mul(bm[1], w4pow))
+        bp = add(bm[4], mul(bm[3], w4pow))
+        cp = add(bm[6], mul(bm[5], w4pow))
+        w2 = mul(w4pow, w4pow)
+        zp = add(add(mul(bm[7], w2), mul(bm[8], w4pow)), bm[9])
+        wW = mul(w4pow, sc(fr.w[zk.power]))
+        wW2 = mul(wW, wW)
+        zWp = add(add(mul(bm[7], wW2), mul(bm[8], wW)), bm[9])
 
-    z1t, z2t, z3t = _mulz_tables(fr)
-    tile = lambda tab: ftorch.to_tensor(ftorch.np_from_ints(
-        fr, [fr.to_mont(x) for x in tab]), dev).repeat(1, n)
-    Z1 = tile(z1t)
-    Z2 = tile(z2t)
-    Z3 = tile(z3t)
+        z1t, z2t, z3t = _mulz_tables(fr)
+        tile = lambda tab: ftorch.to_tensor(ftorch.np_from_ints(
+            fr, [fr.to_mont(x) for x in tab]), dev).repeat(1, n)
+        Z1 = tile(z1t)
+        Z2 = tile(z2t)
+        Z3 = tile(z3t)
 
-    def mulz2(a, bb, apx, bpx):
-        a_b = mul(a, bb)
-        a0 = add(mul(a, bpx), mul(apx, bb))
-        a1 = mul(apx, bpx)
-        rz = add(a0, mul(Z1, a1))
-        return a_b, rz
+        def mulz2(a, bb, apx, bpx):
+            a_b = mul(a, bb)
+            a0 = add(mul(a, bpx), mul(apx, bb))
+            a1 = mul(apx, bpx)
+            rz = add(a0, mul(Z1, a1))
+            return a_b, rz
 
-    def mulz4(a, bb, c, d, apx, bpx, cpx, dpx):
-        a_b = mul(a, bb)
-        a_bp = mul(a, bpx)
-        ap_b = mul(apx, bb)
-        ap_bp = mul(apx, bpx)
-        c_d = mul(c, d)
-        c_dp = mul(c, dpx)
-        cp_d = mul(cpx, d)
-        cp_dp = mul(cpx, dpx)
-        r = mul(a_b, c_d)
-        a0 = add(add(mul(ap_b, c_d), mul(a_bp, c_d)),
-                 add(mul(a_b, cp_d), mul(a_b, c_dp)))
-        a1 = add(add(add(mul(ap_bp, c_d), mul(ap_b, cp_d)),
-                     add(mul(ap_b, c_dp), mul(a_bp, cp_d))),
-                 add(mul(a_bp, c_dp), mul(a_b, cp_dp)))
-        a2 = add(add(mul(a_bp, cp_dp), mul(ap_b, cp_dp)),
-                 add(mul(ap_bp, c_dp), mul(ap_bp, cp_d)))
-        a3 = mul(ap_bp, cp_dp)
-        rz = add(add(a0, mul(Z1, a1)), add(mul(Z2, a2), mul(Z3, a3)))
-        return r, rz
+        def mulz4(a, bb, c, d, apx, bpx, cpx, dpx):
+            a_b = mul(a, bb)
+            a_bp = mul(a, bpx)
+            ap_b = mul(apx, bb)
+            ap_bp = mul(apx, bpx)
+            c_d = mul(c, d)
+            c_dp = mul(c, dpx)
+            cp_d = mul(cpx, d)
+            cp_dp = mul(cpx, dpx)
+            r = mul(a_b, c_d)
+            a0 = add(add(mul(ap_b, c_d), mul(a_bp, c_d)),
+                     add(mul(a_b, cp_d), mul(a_b, c_dp)))
+            a1 = add(add(add(mul(ap_bp, c_d), mul(ap_b, cp_d)),
+                         add(mul(ap_b, c_dp), mul(a_bp, cp_d))),
+                     add(mul(a_bp, c_dp), mul(a_b, cp_dp)))
+            a2 = add(add(mul(a_bp, cp_dp), mul(ap_b, cp_dp)),
+                     add(mul(ap_bp, c_dp), mul(ap_bp, cp_d)))
+            a3 = mul(ap_bp, cp_dp)
+            rz = add(add(a0, mul(Z1, a1)), add(mul(Z2, a2), mul(Z3, a3)))
+            return r, rz
 
-    # PI evaluations over 4n
-    pi4 = None
-    for j in range(zk.n_public):
-        term = mul(lag4[j], buffA[:, j:j + 1])
-        pi4 = ftorch.neg(ctx, term) if pi4 is None else sub(pi4, term)
-    if pi4 is None:
-        pi4 = zeros(n4)
+        # PI evaluations over 4n
+        pi4 = None
+        for j in range(zk.n_public):
+            term = mul(lag4[j], buffA[:, j:j + 1])
+            pi4 = ftorch.neg(ctx, term) if pi4 is None else sub(pi4, term)
+        if pi4 is None:
+            pi4 = zeros(n4)
 
-    e1, e1z = mulz2(evalA, evalB, ap, bp)
-    e1 = mul(e1, qme)
-    e1z = mul(e1z, qme)
-    e1 = add(e1, mul(evalA, qle))
-    e1z = add(e1z, mul(ap, qle))
-    e1 = add(e1, mul(evalB, qre))
-    e1z = add(e1z, mul(bp, qre))
-    e1 = add(e1, mul(evalC, qoe))
-    e1z = add(e1z, mul(cp, qoe))
-    e1 = add(e1, pi4)
-    e1 = add(e1, qce)
+        e1, e1z = mulz2(evalA, evalB, ap, bp)
+        e1 = mul(e1, qme)
+        e1z = mul(e1z, qme)
+        e1 = add(e1, mul(evalA, qle))
+        e1z = add(e1z, mul(ap, qle))
+        e1 = add(e1, mul(evalB, qre))
+        e1z = add(e1z, mul(bp, qre))
+        e1 = add(e1, mul(evalC, qoe))
+        e1z = add(e1z, mul(cp, qoe))
+        e1 = add(e1, pi4)
+        e1 = add(e1, qce)
 
-    betaw4 = mul(beta_m, w4pow)
-    e2a = add(add(evalA, betaw4), gamma_m)
-    e2b = add(add(evalB, mul(betaw4, k1_m)), gamma_m)
-    e2c = add(add(evalC, mul(betaw4, k2_m)), gamma_m)
-    e2, e2z = mulz4(e2a, e2b, e2c, evalZ, ap, bp, cp, zp)
-    e2 = mul(e2, alpha_m)
-    e2z = mul(e2z, alpha_m)
+        betaw4 = mul(beta_m, w4pow)
+        e2a = add(add(evalA, betaw4), gamma_m)
+        e2b = add(add(evalB, mul(betaw4, k1_m)), gamma_m)
+        e2c = add(add(evalC, mul(betaw4, k2_m)), gamma_m)
+        e2, e2z = mulz4(e2a, e2b, e2c, evalZ, ap, bp, cp, zp)
+        e2 = mul(e2, alpha_m)
+        e2z = mul(e2z, alpha_m)
 
-    e3a = add(add(evalA, mul(beta_m, sig1e)), gamma_m)
-    e3b = add(add(evalB, mul(beta_m, sig2e)), gamma_m)
-    e3c = add(add(evalC, mul(beta_m, sig3e)), gamma_m)
-    e3, e3z = mulz4(e3a, e3b, e3c, zw4, ap, bp, cp, zWp)
-    e3 = mul(e3, alpha_m)
-    e3z = mul(e3z, alpha_m)
+        e3a = add(add(evalA, mul(beta_m, sig1e)), gamma_m)
+        e3b = add(add(evalB, mul(beta_m, sig2e)), gamma_m)
+        e3c = add(add(evalC, mul(beta_m, sig3e)), gamma_m)
+        e3, e3z = mulz4(e3a, e3b, e3c, zw4, ap, bp, cp, zWp)
+        e3 = mul(e3, alpha_m)
+        e3z = mul(e3z, alpha_m)
 
-    e4 = mul(mul(sub(evalZ, ctx.one((1,), dev)), lag1_4n), alpha2_m)
-    e4z = mul(mul(zp, lag1_4n), alpha2_m)
+        e4 = mul(mul(sub(evalZ, ctx.one((1,), dev)), lag1_4n), alpha2_m)
+        e4z = mul(mul(zp, lag1_4n), alpha2_m)
 
-    tEv = add(sub(add(e1, e2), e3), e4)
-    tzEv = add(sub(add(e1z, e2z), e3z), e4z)
+        tEv = add(sub(add(e1, e2), e3), e4)
+        tzEv = add(sub(add(e1z, e2z), e3z), e4z)
 
-    polT = nttmod.intt(ctx, tEv)
-    polT = fops.div_zh(ctx, polT, n)
-    polTz = nttmod.intt(ctx, tzEv)
-    polT = add(polT, polTz)
+        polT = nttmod.intt(ctx, tEv)
+        polT = fops.div_zh(ctx, polT, n)
+        polTz = nttmod.intt(ctx, tzEv)
+        polT = add(polT, polTz)
 
-    # split T into T1 (n+1), T2 (n+1), T3 (n+6) with the b10/b11 tweaks
-    T1 = fops.pad_to(polT[:, :n], n + 1)
-    T1[:, n] = bm[10][:, 0]
-    T2 = fops.pad_to(polT[:, n:2 * n], n + 1)
-    T2[:, 0] = sub(T2[:, 0], bm[10][:, 0])
-    T2[:, n] = bm[11][:, 0]
-    T3 = fops.pad_to(polT[:, 2 * n:], n + 6)
-    T3[:, 0] = sub(T3[:, 0], bm[11][:, 0])
+        # split T into T1 (n+1), T2 (n+1), T3 (n+6) with the b10/b11 tweaks
+        T1 = fops.pad_to(polT[:, :n], n + 1)
+        T1[:, n] = bm[10][:, 0]
+        T2 = fops.pad_to(polT[:, n:2 * n], n + 1)
+        T2[:, 0] = sub(T2[:, 0], bm[10][:, 0])
+        T2[:, n] = bm[11][:, 0]
+        T3 = fops.pad_to(polT[:, 2 * n:], n + 6)
+        T3[:, 0] = sub(T3[:, 0], bm[11][:, 0])
 
-    commitT1 = commit(T1)
-    commitT2 = commit(T2)
-    commitT3 = commit(T3)
+    commitT1 = commit("T1", T1)
+    commitT2 = commit("T2", T2)
+    commitT3 = commit("T3", T3)
 
     # --- round 4: evaluations ------------------------------------------
-    if logger:
-        logger.debug("Round 4: evaluations")
-    t.reset()
-    t.add_scalar(alpha)
-    t.add_poly(commitT1)
-    t.add_poly(commitT2)
-    t.add_poly(commitT3)
-    xi = t.challenge()
-    xiw = xi * fr.w[zk.power] % p
+    log("Round 4: evaluations")
+    with trace.span("plonk.evals"):
+        t.reset()
+        t.add_scalar(alpha)
+        t.add_poly(commitT1)
+        t.add_poly(commitT2)
+        t.add_poly(commitT3)
+        xi = t.challenge()
+        xiw = xi * fr.w[zk.power] % p
 
-    eval_a = fops.poly_eval(ctx, polA_b, xi)
-    eval_b = fops.poly_eval(ctx, polB_b, xi)
-    eval_c = fops.poly_eval(ctx, polC_b, xi)
-    eval_s1 = fops.poly_eval(ctx, sig1c, xi)
-    eval_s2 = fops.poly_eval(ctx, sig2c, xi)
-    eval_zw = fops.poly_eval(ctx, polZ_b, xiw)
+        eval_a = fops.poly_eval(ctx, polA_b, xi)
+        eval_b = fops.poly_eval(ctx, polB_b, xi)
+        eval_c = fops.poly_eval(ctx, polC_b, xi)
+        eval_s1 = fops.poly_eval(ctx, sig1c, xi)
+        eval_s2 = fops.poly_eval(ctx, sig2c, xi)
+        eval_zw = fops.poly_eval(ctx, polZ_b, xiw)
 
     # --- round 5: linearisation + openings ------------------------------
-    if logger:
-        logger.debug("Round 5: linearisation + openings")
-    t.reset()
-    t.add_scalar(xi)
-    for e in (eval_a, eval_b, eval_c, eval_s1, eval_s2, eval_zw):
-        t.add_scalar(e)
-    v1 = t.challenge()
-    v = [None, v1]
-    for i in range(2, 6):
-        v.append(v[i - 1] * v1 % p)
+    log("Round 5: linearisation + openings")
+    with trace.span("plonk.open"):
+        t.reset()
+        t.add_scalar(xi)
+        for e in (eval_a, eval_b, eval_c, eval_s1, eval_s2, eval_zw):
+            t.add_scalar(e)
+        v1 = t.challenge()
+        v = [None, v1]
+        for i in range(2, 6):
+            v.append(v[i - 1] * v1 % p)
 
-    xin = pow(xi, n, p)
-    zh = (xin - 1) % p
-    eval_l1 = (xin - 1) * pow(n * (xi - 1) % p, p - 2, p) % p
+        xin = pow(xi, n, p)
+        zh = (xin - 1) % p
+        eval_l1 = (xin - 1) * pow(n * (xi - 1) % p, p - 2, p) % p
 
-    L = [None]
-    wv = 1
-    for i in range(1, max(1, zk.n_public) + 1):
-        L.append(wv * zh % p * pow(n * (xi - wv) % p, p - 2, p) % p)
-        wv = wv * fr.w[zk.power] % p
-    eval_pi = 0
-    for i, x in enumerate(publics):
-        eval_pi = (eval_pi - x * L[i + 1]) % p
+        L = [None]
+        wv = 1
+        for i in range(1, max(1, zk.n_public) + 1):
+            L.append(wv * zh % p * pow(n * (xi - wv) % p, p - 2, p) % p)
+            wv = wv * fr.w[zk.power] % p
+        eval_pi = 0
+        for i, x in enumerate(publics):
+            eval_pi = (eval_pi - x * L[i + 1]) % p
 
-    coef_ab = eval_a * eval_b % p
-    betaxi = beta * xi % p
-    e2v = ((eval_a + betaxi + gamma) * (eval_b + betaxi * zk.k1 + gamma)
-           * (eval_c + betaxi * zk.k2 + gamma)) % p * alpha % p
-    e3v = ((eval_a + beta * eval_s1 + gamma)
-           * (eval_b + beta * eval_s2 + gamma)) % p * eval_zw % p * alpha % p
-    e4v = eval_l1 * alpha % p * alpha % p
+        coef_ab = eval_a * eval_b % p
+        betaxi = beta * xi % p
+        e2v = ((eval_a + betaxi + gamma) * (eval_b + betaxi * zk.k1 + gamma)
+               * (eval_c + betaxi * zk.k2 + gamma)) % p * alpha % p
+        e3v = ((eval_a + beta * eval_s1 + gamma)
+               * (eval_b + beta * eval_s2 + gamma)) % p * eval_zw % p * alpha % p
+        e4v = eval_l1 * alpha % p * alpha % p
 
-    lenR = n + 6
-    R = fops.add_many(ctx, [
-        (key["qm"][0], sc(coef_ab)),
-        (key["ql"][0], sc(eval_a)),
-        (key["qr"][0], sc(eval_b)),
-        (key["qo"][0], sc(eval_c)),
-        (key["qc"][0], None),
-        (polZ_b, sc((e2v + e4v) % p)),
-    ], lenR)
-    R = sub(R, mul(fops.pad_to(sig3c, lenR), sc(e3v * beta % p)))
-    tmp = fops.add_many(ctx, [
-        (T3, sc(xin * xin % p)),
-        (T2, sc(xin)),
-        (T1, None),
-    ], lenR)
-    R = sub(R, mul(tmp, sc(zh)))
-    r0 = (eval_pi - e3v * (eval_c + gamma) - e4v) % p
-    R[:, 0] = add(R[:, 0], sc(r0)[:, 0])
+        lenR = n + 6
+        R = fops.add_many(ctx, [
+            (key["qm"][0], sc(coef_ab)),
+            (key["ql"][0], sc(eval_a)),
+            (key["qr"][0], sc(eval_b)),
+            (key["qo"][0], sc(eval_c)),
+            (key["qc"][0], None),
+            (polZ_b, sc((e2v + e4v) % p)),
+        ], lenR)
+        R = sub(R, mul(fops.pad_to(sig3c, lenR), sc(e3v * beta % p)))
+        tmp = fops.add_many(ctx, [
+            (T3, sc(xin * xin % p)),
+            (T2, sc(xin)),
+            (T1, None),
+        ], lenR)
+        R = sub(R, mul(tmp, sc(zh)))
+        r0 = (eval_pi - e3v * (eval_c + gamma) - e4v) % p
+        R[:, 0] = add(R[:, 0], sc(r0)[:, 0])
 
-    Wxi = fops.add_many(ctx, [
-        (R, None),
-        (polA_b, sc(v[1])),
-        (polB_b, sc(v[2])),
-        (polC_b, sc(v[3])),
-        (fops.pad_to(sig1c, lenR), sc(v[4])),
-        (fops.pad_to(sig2c, lenR), sc(v[5])),
-    ], lenR)
-    sub_const = (v[1] * eval_a + v[2] * eval_b + v[3] * eval_c
-                 + v[4] * eval_s1 + v[5] * eval_s2) % p
-    Wxi[:, 0] = sub(Wxi[:, 0], sc(sub_const)[:, 0])
-    Wxi_q, rem = fops.div_by_x_minus(ctx, Wxi, sc(xi))
-    if ftorch.np_to_ints(fr, rem)[0] != 0:
-        raise RuntimeError("Wxi polynomial is not divisible")
+        Wxi = fops.add_many(ctx, [
+            (R, None),
+            (polA_b, sc(v[1])),
+            (polB_b, sc(v[2])),
+            (polC_b, sc(v[3])),
+            (fops.pad_to(sig1c, lenR), sc(v[4])),
+            (fops.pad_to(sig2c, lenR), sc(v[5])),
+        ], lenR)
+        sub_const = (v[1] * eval_a + v[2] * eval_b + v[3] * eval_c
+                     + v[4] * eval_s1 + v[5] * eval_s2) % p
+        Wxi[:, 0] = sub(Wxi[:, 0], sc(sub_const)[:, 0])
+        Wxi_q, rem = fops.div_by_x_minus(ctx, Wxi, sc(xi))
+        if ftorch.np_to_ints(fr, rem)[0] != 0:
+            raise RuntimeError("Wxi polynomial is not divisible")
 
-    Wxiw = fops.pad_to(polZ_b, n + 3).clone()
-    Wxiw[:, 0] = sub(Wxiw[:, 0], sc(eval_zw)[:, 0])
-    Wxiw_q, rem2 = fops.div_by_x_minus(ctx, Wxiw, sc(xiw))
-    if ftorch.np_to_ints(fr, rem2)[0] != 0:
-        raise RuntimeError("Wxiw polynomial is not divisible")
+        Wxiw = fops.pad_to(polZ_b, n + 3).clone()
+        Wxiw[:, 0] = sub(Wxiw[:, 0], sc(eval_zw)[:, 0])
+        Wxiw_q, rem2 = fops.div_by_x_minus(ctx, Wxiw, sc(xiw))
+        if ftorch.np_to_ints(fr, rem2)[0] != 0:
+            raise RuntimeError("Wxiw polynomial is not divisible")
 
-    commitWxi = commit(Wxi_q)
-    commitWxiw = commit(Wxiw_q)
+    commitWxi = commit("Wxi", Wxi_q)
+    commitWxiw = commit("Wxiw", Wxiw_q)
     polys = dict(A=polA_b, B=polB_b, C=polC_b, Z=polZ_b, T1=T1, T2=T2, T3=T3,
                  Wxi=Wxi_q, Wxiw=Wxiw_q)
 

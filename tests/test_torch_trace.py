@@ -1,8 +1,9 @@
 """The port's tracer (`snarkjs_tpu_torch/trace.py`): spans recorded only under
-the torch profiler, on its clock, in the tree of `groth16.prove`; the counter
-registry; nothing recorded and the same proof without the profiler.
+the torch profiler, on its clock, in the trees of `groth16.prove` and
+`plonk.prove`; the counter registry; nothing recorded and the same proof
+without the profiler.
 
-On the stored tiny bn128 fixture, with the plain versions (device="cpu")."""
+On the stored tiny bn128 fixtures, with the plain versions (device="cpu")."""
 
 import json
 import os
@@ -207,3 +208,74 @@ def test_an_upload_counts_only_copies_to_a_card():
     t = devmod.upload(torch.zeros(10, dtype=torch.int32), "cpu")
     assert t.device.type == "cpu"
     assert trace.counters() == before
+
+
+# ------------------------------------------------------------------ PLONK
+
+PLONK_MSMS = ["A", "B", "C", "Z", "T1", "T2", "T3", "Wxi", "Wxiw"]
+# the root's children but the logger's, in the order they open
+PLONK_TOP = (["plonk.witness", "plonk.wires"] + ["msm"] * 3 + ["plonk.perm", "msm",
+             "plonk.quotient"] + ["msm"] * 3 + ["plonk.evals", "plonk.open", "msm", "msm"])
+
+
+def _plonk_prove(logger=None):
+    from snarkjs_tpu_torch.protocols import plonk as tp
+
+    with open(os.path.join(FIXTURES, "tiny_plonk_bn128_proof.json")) as f:
+        want = json.load(f)
+    got = tp.prove_files(os.path.join(FIXTURES, "tiny_plonk_bn128.zkey"),
+                         os.path.join(FIXTURES, "tiny_plonk_bn128.wtns"), b=want["b"],
+                         device="cpu", logger=logger)
+    return got, (want["proof"], want["publicSignals"])
+
+
+@pytest.fixture(scope="module")
+def plonk_profiled():
+    """One PLONK prove of the stored tiny fixture under the profiler: (its
+    spans, the proof, the stored proof, the logger's lines)."""
+    lines = _Lines()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got, want = _plonk_prove(lines)
+    return trace.recent(1)[0], got, want, lines.lines
+
+
+def test_a_profiled_plonk_prove_records_its_rounds_and_nine_msms(plonk_profiled):
+    spans, got, want, lines = plonk_profiled
+    assert got == want
+    root = spans[0]
+    assert (root.name, root.parent, root.attrs) == ("plonk.prove", None,
+                                                    {"curve": "bn128", "domain": 64})
+    assert [s.name for s in spans if s.parent == 0 and s.name != "prove.logger"] == PLONK_TOP
+    msms = [i for i, s in enumerate(spans) if s.name == "msm"]
+    assert [spans[i].attrs for i in msms] == [
+        {"name": k, "points": m} for k, m in zip(PLONK_MSMS, [66, 66, 66, 67, 65, 65, 70, 70, 67])]
+    for i in msms:
+        assert [s.name for s in spans if s.parent == i] == MSM_CHILDREN
+    assert all(spans[s.parent].name == "msm" for s in spans if s.name.startswith("msm."))
+    for s in spans[1:]:
+        p = spans[s.parent]
+        assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    assert len({s.request for s in spans}) == 1
+    # a logger line before each round and each commitment, one prove.logger span each
+    assert len(lines) == sum(s.name == "prove.logger" for s in spans) == 14
+    assert [x for x in lines if x.startswith("Multiexp")] == [f"Multiexp {k}" for k in PLONK_MSMS]
+    assert [x.split(":")[0] for x in lines if x.startswith("Round")] == [
+        f"Round {k}" for k in range(1, 6)]
+
+
+def test_plonk_counter_deltas_of_the_children_sum_to_their_parents(plonk_profiled):
+    """The root's own code counts nothing: every counter's delta over the
+    root is the sum of its children's; the same for each msm span."""
+    spans = plonk_profiled[0]
+    for i in [0] + [i for i, s in enumerate(spans) if s.name == "msm"]:
+        kids = [s for s in spans if s.parent == i]
+        for k, v in spans[i].counters.items():
+            assert sum(s.counters.get(k, 0) for s in kids) == v, (spans[i].name, k)
+
+
+def test_without_the_profiler_a_plonk_prove_records_nothing():
+    before = [id(r) for r in trace.recent()]
+    assert not torch.autograd._profiler_enabled()
+    got, want = _plonk_prove(_Lines())
+    assert [id(r) for r in trace.recent()] == before
+    assert got == want
