@@ -51,7 +51,17 @@ Phases (any failure exits non-zero before the last line):
      on bn254 Fr through `fused=False` (K-mm, then `_normalize_cols` in
      PyTorch), launch counts set to 0 just before and read just after, each
      result equal limb for limb to the default route's; then K-mm against its
-     plain version at every shape that path gave it;
+     plain version at every shape that path gave it; then the stage split
+     (`phase_ntt_split`): each 2^k NTT a driven path runs (k = 11, 12, 16,
+     18-23, and a rank's 4096-point axes of the mesh's 2^24 NTT) timed under
+     `ntt_mm._split` and under the earlier fixed first radix of 2^10 (2^22 as
+     2 + 10 + 10; at 2^22 also 10 + 6 + 6), in turns, the outputs equal;
+     K-mm-norm against its plain version at every stage shape of the split at
+     2^21-2^23 and on the mesh's axes (2^22's also on bls12-381 Fr); the
+     narrow K-mm-norm launches (`k_mm_norm_narrow`, r under a 64-row tile)
+     counted over a Groth16 2^22 prove and a PLONK 2^20 prove on the
+     benchmark's inputs (benchmark/configs, benchmark/traffic) under both
+     splits, the proofs equal, warm proves timed in turns;
  10. Groth16 setup from a prepared .ptau: a power-19 bn128 .ptau built on the
      card from fixed secrets (every point by the port's batched
      double-and-add; sections 2-6, 12-15 as one contribution and
@@ -218,6 +228,7 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import importlib
 import io
 import json
 import logging
@@ -1355,7 +1366,7 @@ def phase_plonk_prove(dev, tables, cv=hc.BN254):
             "peak_gib": peak / 2**30}
 
 
-STAGE_SHAPES = {(1024, 1024, 1024): 12, (256, 256, 1024): 4, (1024, 1024, 256): 4}
+STAGE_SHAPES = {(1024, 1024, 1024): 12, (512, 512, 512): 8}
 BIG = (1024, 1024, 1024)
 
 
@@ -1398,7 +1409,7 @@ def phase_ntt_path(dev, gen, errs):
     check(launches["digit_mm"] == 6 and launches["digit_mm_norm"] == 0
           and launches["field_ops"] > 0,
           "NTT path: expected 6 K-mm launches, no K-mm-norm, and K-field twiddles")
-    check(dict(shapes["digit_mm"]) == {BIG: 4, (256, 256, 1024): 1, (1024, 1024, 256): 1},
+    check(dict(shapes["digit_mm"]) == {BIG: 4, (512, 512, 512): 2},
           f"the NTT path's K-mm shapes are not the expected ones: {dict(shapes['digit_mm'])}")
     for (what, fn, a), g in zip(cases, got):
         e = max_abs_err(g, fn(ctx, a))
@@ -1409,6 +1420,141 @@ def phase_ntt_path(dev, gen, errs):
     mms = [mm_case(dev, gen, "digit_mm", sh, n, "ntt fused=False", errs)
            for sh, n in sorted(shapes["digit_mm"].items()) if sh != BIG]
     return launches, shapes, mms
+
+
+# the split rules the phase compares: the rule of `ntt_mm._split`; the
+# earlier fixed first radix (2^22 as 2 + 10 + 10); one stage of 2^10, the
+# rest balanced (2^22 as 6 + 6 + 10).  Reached by patching `_split` here only.
+SPLIT_RULES = {
+    "balanced": ntt_mm._split,
+    "fixed": lambda k: min(k, ntt_mm.MAX_LOG_R),
+}
+SPLIT_RULES["ten_first"] = lambda k: (ntt_mm.MAX_LOG_R if -(-k // ntt_mm.MAX_LOG_R) > 2
+                                      else SPLIT_RULES["balanced"](k))
+SPLIT_LOGS = (11, 12, 16, 18, 19, 20, 21, 22, 23)   # 2^k NTTs of the driven paths
+SPLIT_HOLD_LOGS = (21, 22, 23)     # sizes whose stage shapes are held against plain
+MESH_AXIS = (1024, 4096)           # a rank's block of the 2^24 four-step NTT on four
+                                   # ranks: 1024 columns, each a 4096-point axis
+
+
+@contextlib.contextmanager
+def split_rule(name):
+    """Every NTT of a block split by SPLIT_RULES[name]."""
+    ntt_mm._split = SPLIT_RULES[name]
+    try:
+        yield
+    finally:
+        ntt_mm._split = SPLIT_RULES["balanced"]
+
+
+def split_stages(k):
+    """The log radices of a 2^k NTT's stages under the `_split` in force,
+    in the order `_ntt_last` runs them."""
+    k1 = ntt_mm._split(k)
+    return [k] if k1 == k else split_stages(k - k1) + [k1]
+
+
+def narrow_counts(prove):
+    """K-mm-norm's launches and its narrow ones (r under a tile) in one call."""
+    reset_counts()
+    prove()
+    torch.cuda.synchronize()
+    c = trace.counters()
+    return {"k_mm_norm": c["k_mm_norm"], "k_mm_norm_narrow": c["k_mm_norm_narrow"]}
+
+
+def bench_cell(config, traffic, seed, dev):
+    """The inputs of a benchmark cell (benchmark/configs, benchmark/traffic),
+    made as the benchmark makes them from `seed`, and its first request."""
+    from benchmark.harness import traffic as traffic_mod
+
+    read = lambda *p: json.load(open(os.path.join(HERE, "benchmark", *p)))
+    mix = read("traffic", f"{traffic}.json")
+    family = importlib.import_module(f"benchmark.configs.{config}")
+    cell = family.make(read("configs", f"{config}.json"), mix, seed, dev)
+    return cell, next(traffic_mod.stream(mix, seed))
+
+
+def phase_ntt_split(dev, gen, errs):
+    """The NTT's stage split (`ntt_mm._split`) against the earlier fixed
+    first radix: each 2^k NTT of SPLIT_LOGS and a rank's axes of the mesh's
+    2^24 NTT timed under both rules in turns (CUDA events), the outputs
+    limb-equal; at 2^22 the rule of one 2^10 stage and the rest balanced too;
+    K-mm-norm against its plain version at every stage shape of the rule at
+    SPLIT_HOLD_LOGS (2^22 on both Fr fields) and on the mesh's axes; then
+    `k_mm_norm_narrow` over a Groth16 2^22 prove and a PLONK 2^20 prove (the
+    benchmark's cells' inputs) under both rules, the proofs equal, with their
+    warm times in turns."""
+    ctx = ftorch.get_ctx("bn254_fr")
+    fp = ctx.fp
+    rows, seen = [], collections.Counter()
+    cases = [(f"2^{k}", rand_field(fp, 1 << k, dev, gen).reshape(fp.nl, 1, 1 << k), k)
+             for k in SPLIT_LOGS]
+    cases.append(("mesh 2^24 axes", rand_field(fp, MESH_AXIS[0] * MESH_AXIS[1], dev, gen)
+                  .reshape(fp.nl, *MESH_AXIS), 24))
+    for what, x, k in cases:
+        rules = ("balanced", "fixed", "ten_first") if k == 22 else ("balanced", "fixed")
+        call = lambda inverse=False: ntt_mm._ntt_last(ctx, x, inverse)
+        out, ms = {}, {r: [] for r in rules}
+        for r in rules:
+            with split_rule(r):
+                out[r] = (call(), call(True))
+        for r in rules:
+            check(all(max_abs_err(a, b) == 0 for a, b in zip(out[r], out["balanced"])),
+                  f"NTT {what}: the {r} split differs from the balanced one")
+        iters = 20 if k <= 16 else 5
+        for r in rules + rules[::-1]:
+            with split_rule(r):
+                ms[r].append(cuda_ms(call, iters))
+        if k in SPLIT_HOLD_LOGS or k == 24:
+            with recorded_shapes() as shapes:
+                call()
+            seen.update(shapes["digit_mm_norm"])
+        row = {"ntt": what, "stages": {}}
+        for r in rules:
+            with split_rule(r):
+                row["stages"][r] = split_stages(x.shape[-1].bit_length() - 1)
+            row[f"{r}_ms"] = float(np.mean(ms[r]))
+        rows.append(row)
+        log(f"  NTT {what}: " + ", ".join(
+            f"{r} {'+'.join(map(str, row['stages'][r]))} {row[f'{r}_ms']:.3f} ms "
+            f"({' / '.join(f'{t:.3f}' for t in ms[r])})" for r in rules) + "; outputs equal")
+    del cases, out
+    torch.cuda.empty_cache()
+    check(all(sh[0] >= ntt_mm.NORM_TILE_ROWS for sh in seen),
+          f"a stage of the balanced split at 2^21-2^23 or the mesh's axes is narrow: {seen}")
+    log(f"  stage shapes of the balanced split at 2^21, 2^22, 2^23 and the mesh's axes: "
+        f"{shapes_json({'digit_mm_norm': seen})}")
+    norms = norm_cases(dev, gen, seen, "ntt split", errs)
+    at22 = {sh: n for sh, n in seen.items() if sh[0] * sh[2] == 1 << 22}
+    norms += norm_cases(dev, gen, at22, "ntt split", errs, "bls12_381_fr")
+
+    proves = {}
+    for what, config, traffic in (("groth16 2^22", "groth16_bn128", "p22"),
+                                  ("plonk 2^20", "plonk_bn128", "p20")):
+        t = time.perf_counter()
+        cell, req = bench_cell(config, traffic, 20, dev)
+        log(f"  {what}: the benchmark's inputs made in {time.perf_counter() - t:.1f} s")
+        got, times, counted = {}, {r: [] for r in ("balanced", "fixed")}, {}
+        for r in ("balanced", "fixed"):
+            with split_rule(r):
+                cell.op(req)                       # builds the rule's tables
+                counted[r] = narrow_counts(lambda: got.setdefault(r, cell.op(req)))
+        check(json.dumps(got["balanced"]) == json.dumps(got["fixed"]),
+              f"{what}: the two splits give different proofs")
+        for r in ("balanced", "fixed", "fixed", "balanced"):
+            with split_rule(r):
+                times[r].append(wall_ms(lambda: cell.op(req))[0])
+        cell.free()
+        del cell
+        torch.cuda.empty_cache()
+        check(counted["balanced"]["k_mm_norm_narrow"] == 0,
+              f"{what}: narrow K-mm-norm launches under the balanced split")
+        proves[what] = {r: dict(counted[r], warm_ms=times[r]) for r in counted}
+        log(f"  {what}: proofs equal; " + "; ".join(
+            f"{r}: K-mm-norm {c['k_mm_norm']}, narrow {c['k_mm_norm_narrow']}, warm "
+            f"{' / '.join(f'{t:.1f}' for t in times[r])} ms" for r, c in counted.items()))
+    return {"ntts": rows, "proves": proves, "norms": norms}
 
 
 class RoundClock:
@@ -3316,6 +3462,8 @@ def run():
     log(f"[NTT path: K-mm] ({time.perf_counter() - t0:.1f} s so far)")
     nl, nshapes, nmms = phase_ntt_path(dev, gen, errs)
     torch.cuda.empty_cache()
+    log(f"[NTT stage split] ({time.perf_counter() - t0:.1f} s so far)")
+    split = phase_ntt_split(dev, gen, errs)
     log(f"[Groth16 and PLONK setup from a .ptau] ({time.perf_counter() - t0:.1f} s so far)")
     setup = phase_setup(dev, gen, errs, rate32)
     sl = setup["launches"]
@@ -3398,8 +3546,8 @@ def run():
          "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
-         [norm_big] + pnorms + ff["norms"] + cer["norms"] + mpc["norms"] + clip["norms"]
-         + mesh["norms"] + [e for ph in bls.values() for e in ph["norms"]]),
+         [norm_big] + pnorms + split["norms"] + ff["norms"] + cer["norms"] + mpc["norms"]
+         + clip["norms"] + mesh["norms"] + [e for ph in bls.values() for e in ph["norms"]]),
     ]
     kernels = []
     for kname, src, replaces, first, every in rows:
@@ -3446,6 +3594,7 @@ def run():
     kernels[0]["bls12_381"] = blsg["field_times"]
     log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
     log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
+    log(f"NTT split: {json.dumps({k: v for k, v in split.items() if k != 'norms'})}")
     log(f"setup phase: {json.dumps(setup)}")
     log(f"fflonk phase: {json.dumps({k: v for k, v in ff.items() if k not in ('scans', 'norms')})}")
     log(f"ceremony phase: {json.dumps({k: v for k, v in cer.items() if k not in ('scans', 'norms')})}")

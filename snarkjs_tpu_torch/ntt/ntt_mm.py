@@ -1,7 +1,8 @@
 """Digit-matmul NTT over Fr (port of snarkjs_tpu/ntt/ntt_mxu.py).
 
 A size-2^k NTT is split four-step style into DFT-matrix products of size
-<= 1024 (`_ntt_last`).  Field elements enter each product as balanced
+<= 1024 (`_ntt_last`), the fewest such stages with radices within a factor
+of two of each other (`_split`).  Field elements enter each product as balanced
 signed 8-bit digits, so an r x r product over Fp becomes nd x nd int8
 digit-pair products accumulated into 2*nd - 1 int32 columns, then normalized
 back to canonical 16-bit limbs (`_normalize_cols`: the carry pass
@@ -13,8 +14,9 @@ sum w*(xR) = (sum w*x)*R.
 normalisation as the kernel's epilogue (kernel K-mm-norm,
 csrc/digit_mm_norm.cu), so the columns never reach device memory as int32.
 Its plain version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`; the
-counter `k_mm_norm` of `trace` counts its launches.  It is the one route of
-every stage (`_mm_stage`).
+counter `k_mm_norm` of `trace` counts its launches, and `k_mm_norm_narrow`
+those whose r is under one output tile (`NORM_TILE_ROWS`).  It is the one
+route of every stage (`_mm_stage`).
 
 `digit_mm` replaces ntt_mxu._pallas_mm: the columns alone (kernel K-mm,
 csrc/digit_mm.cu).  Its plain version is the same sum as exact matmuls:
@@ -47,6 +49,7 @@ from ..fields.ftorch import FieldCtx
 from ..fields.params import FieldParams, get_params
 
 MAX_LOG_R = 10          # largest direct DFT matmul: 1024 x 1024
+NORM_TILE_ROWS = 64     # output rows of a K-mm-norm tile (csrc/digit_mma.cuh TK)
 
 
 def _nd(fp: FieldParams) -> int:
@@ -391,6 +394,8 @@ def digit_mm_norm(fp: FieldParams, W8, D8, y_major: bool = False):
             _build.stream_ptr(D8.device))
         _build.check(err, "K-mm-norm")
         trace.add("k_mm_norm")
+        if r < NORM_TILE_ROWS:
+            trace.add("k_mm_norm_narrow")
     return out
 
 
@@ -412,6 +417,18 @@ def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, aT, fused: bool = True):
     return _normalize_cols(fp, digit_mm(W8, DT, y_major=True))
 
 
+def _split(k: int) -> int:
+    """log2 of the radix of the last stage of a size-2^k NTT (k: one stage).
+
+    The fewest stages of at most 2^MAX_LOG_R, ceil(k / MAX_LOG_R) of them,
+    their log radices within one of each other, the largest last: 2^20 runs
+    as 10 + 10, 2^22 as 7 + 7 + 8.  A stage's radix is the rows of its
+    K-mm-norm launch, which walks the whole reduction for every tile of
+    NORM_TILE_ROWS rows, so a radix far under a tile costs about what a full
+    tile does: 2^22 as 2 + 10 + 10 took 76 ms on an H100, 7 + 7 + 8 23 ms."""
+    return -(-k // -(-k // MAX_LOG_R))
+
+
 def _ntt_last(ctx: FieldCtx, aT, inverse: bool, fused: bool = True):
     """NTT along the last axis of aT (nl, bt, sz); returns (nl, sz, bt): a
     matmul stage takes its data with the summed axis innermost and leaves the
@@ -420,9 +437,9 @@ def _ntt_last(ctx: FieldCtx, aT, inverse: bool, fused: bool = True):
     k = sz.bit_length() - 1
     if k == 0:
         return aT.reshape(nl, sz, bt)
-    if k <= MAX_LOG_R:
+    k1 = _split(k)
+    if k1 == k:
         return _mm_stage(ctx, k, inverse, aT, fused)
-    k1 = MAX_LOG_R
     n1, n2 = 1 << k1, 1 << (k - k1)
     # stage A: NTT over j2 for each (j1, bt); index j = j2 * n1 + j1
     y = _ntt_last(ctx, aT.reshape(nl, bt, n2, n1).permute(0, 3, 1, 2).reshape(

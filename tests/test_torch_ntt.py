@@ -6,6 +6,9 @@ digit matmul against ntt_mxu._einsum_mm and _normalize_cols against its JAX
 counterpart.  Exact: limbs equal.
 """
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,6 +62,60 @@ def test_digit_matmul_ntt_matches_ntt_mxu(k, fn):
     want = np.asarray(getattr(ntt_mxu, fn)(fjnp.get_ctx(FR), jnp.asarray(A)))
     got = getattr(ntt_mm, fn)(ftorch.get_ctx(FR), ftorch.to_tensor(A, "cpu"))
     np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+
+
+def _stages(k):
+    """The log radices of a size-2^k NTT's stages in the order `_ntt_last`
+    runs them: stage A's (the rest, recursively), then stage B's."""
+    k1 = ntt_mm._split(k)
+    return [k] if k1 == k else _stages(k - k1) + [k1]
+
+
+@pytest.mark.parametrize("k", range(1, 29))
+def test_split_is_fewest_balanced_stages(k):
+    """ceil(k / MAX_LOG_R) stages of at most 2^MAX_LOG_R, log radices within
+    one of each other, summing to k; one stage up to 2^10, 2^20 as 10 + 10
+    (the 2^20 NTTs keep their shapes), no stage under 2^6 at 2^22."""
+    got = _stages(k)
+    assert sum(got) == k and max(got) <= ntt_mm.MAX_LOG_R
+    assert len(got) == -(-k // ntt_mm.MAX_LOG_R)
+    assert max(got) - min(got) <= 1
+    if k <= ntt_mm.MAX_LOG_R:
+        assert got == [k]
+    if k == 20:
+        assert got == [10, 10]
+    if k == 22:
+        assert min(got) >= 6
+
+
+def test_norm_tile_rows_is_the_kernels():
+    """`k_mm_norm_narrow` counts launches of fewer rows than a K-mm-norm
+    tile: NORM_TILE_ROWS is the TK of the kernels' main loop."""
+    src = open(os.path.join(os.path.dirname(ntt_mm.__file__), "..", "csrc",
+                            "digit_mma.cuh")).read()
+    assert int(re.search(r"constexpr int TK = (\d+);", src).group(1)) == ntt_mm.NORM_TILE_ROWS
+
+
+@pytest.mark.parametrize("k", [7, 8, 9])
+@pytest.mark.parametrize("fn", ["ntt", "intt"])
+def test_balanced_stages_match_butterflies(fn, k, monkeypatch):
+    """With stages of at most 2^3, k = 7, 8, 9 take three stages (2 + 2 + 3,
+    2 + 3 + 3, 3 + 3 + 3; 2^7 would be 1 + 3 + 3 with a radix-2 stage under a
+    fixed first radix): each output limb-equal to the JAX butterfly NTT, and
+    the stages run as `_split` gives them."""
+    monkeypatch.setattr(ntt_mm, "MAX_LOG_R", 3)
+    radices, stage = [], ntt_mm._mm_stage
+
+    def rec(ctx, kk, inverse, aT, fused=True):
+        radices.append(kk)
+        return stage(ctx, kk, inverse, aT, fused)
+
+    monkeypatch.setattr(ntt_mm, "_mm_stage", rec)
+    A = _data(k, 12)
+    want = np.asarray(getattr(jntt, fn)(fjnp.get_ctx(FR), jnp.asarray(A)))
+    got = getattr(ntt_mm, fn)(ftorch.get_ctx(FR), ftorch.to_tensor(A, "cpu"))
+    np.testing.assert_array_equal(ftorch.to_numpy(got), want)
+    assert radices == _stages(k) and len(radices) == 3
 
 
 def _digit_inputs(r, q, m, seed=3):

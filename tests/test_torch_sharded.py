@@ -23,6 +23,8 @@ from snarkjs_tpu_torch.curves import host_curve as thc
 from snarkjs_tpu_torch.fields import ftorch
 from snarkjs_tpu_torch.formats import points as tpcodec
 from snarkjs_tpu_torch.ntt import ntt as tntt
+from snarkjs_tpu_torch.ntt import ntt_mm
+from snarkjs_tpu_torch.parallel import sharded as tsharded
 from tests import _torch_ceremony as tc
 from tests import _torch_dist as td
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -124,6 +126,23 @@ def test_ntt_sharded_equals_jax_and_unsharded(worlds, ws, logn):
     np.testing.assert_array_equal(z, x)
     np.testing.assert_array_equal(z, ftorch.to_numpy(tntt.intt(ctx, ftorch.to_tensor(y, "cpu"))))
     np.testing.assert_array_equal(y, refs()["ntt"][logn])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_axis_ntt_matmul_stages_equal_butterflies(inverse, monkeypatch):
+    """A rank's axis NTT (`sharded._ntt_axis`) through the digit matmul with
+    stages of at most 2^3, so its 2^7 axes take 2 + 2 + 3: limb-equal to
+    its butterflies, over either axis of the block (on the CPU the matmul
+    route is taken only where `_use_mm` is patched)."""
+    ctx = ftorch.get_ctx("bn254_fr")
+    x = ftorch.to_tensor(td.ntt_input(10), "cpu")
+    blocks = ((x[:, :768].reshape(ctx.nl, 128, 6), 1), (x[:, :640].reshape(ctx.nl, 5, 128), 2))
+    want = [tsharded._ntt_axis(ctx, b, 128, inverse, ax) for b, ax in blocks]
+    monkeypatch.setattr(ntt_mm, "MAX_LOG_R", 3)
+    monkeypatch.setattr(tntt, "_use_mm", lambda a, k: True)
+    for (b, ax), w in zip(blocks, want):
+        np.testing.assert_array_equal(
+            ftorch.to_numpy(tsharded._ntt_axis(ctx, b, 128, inverse, ax)), ftorch.to_numpy(w))
 
 
 @pytest.mark.parametrize("ws", WORLDS)
