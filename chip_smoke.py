@@ -28,13 +28,12 @@ Phases (any failure exits non-zero before the last line):
      multiples of G1 and 64 of G2), launch counts set to 0 just before and
      read just after; its five MSMs against their closed forms on host
      bigints, P_odd against the plain-version QAP on the card, the proof
-     against the one assembled from the closed forms; then each kernel
-     against its plain version at the shapes this prove gives it;
-  6. where the warm prove's time goes (QAP and each MSM alone, one prove
-     under torch.profiler), warm proves paired over the two NTT routes, then
-     times (CUDA events) of each kernel, its plain version and, for K-mm, one
-     torch._int_mm on the Toeplitz-expanded digit matrix; K-field also its
-     device time a launch under torch.profiler;
+     against the one assembled from the closed forms;
+  6. each kernel against its plain version at the shapes that prove gave it,
+     with times (CUDA events) of the kernel, its plain version and, for K-mm
+     and K-mm-norm at 1024^3, one torch._int_mm on the Toeplitz-expanded
+     digit matrix; K-field also its device time a launch under
+     torch.profiler;
   7. the full-width PLONK prove: the 200,000-constraint squaring chain
      (domain n = 2^18, 4n = 2^20), its key written by `_write_plonk_zkey` on
      the card with an SRS tiled from the 512 multiples of G1; launch counts
@@ -44,24 +43,13 @@ Phases (any failure exits non-zero before the last line):
      versions at every shape that prove called them with (the shapes are
      recorded during the counted prove: the scan input is rebuilt from the
      key's SRS and the blinded polynomial A), each with its time and bound;
-  8. PLONK times: warm proves paired over the two NTT routes (medians,
-     spread, peak memory; the proofs equal), rounds 1-5, one prove under
-     torch.profiler;
-  9. the NTT path: a forward and an inverse 2^20 NTT and an inverse 2^18 NTT
-     on bn254 Fr through `fused=False` (K-mm, then `_normalize_cols` in
-     PyTorch), launch counts set to 0 just before and read just after, each
-     result equal limb for limb to the default route's; then K-mm against its
-     plain version at every shape that path gave it; then the stage split
-     (`phase_ntt_split`): each 2^k NTT a driven path runs (k = 11, 12, 16,
-     18-23, and a rank's 4096-point axes of the mesh's 2^24 NTT) timed under
-     `ntt_mm._split` and under the earlier fixed first radix of 2^10 (2^22 as
-     2 + 10 + 10; at 2^22 also 10 + 6 + 6), in turns, the outputs equal;
-     K-mm-norm against its plain version at every stage shape of the split at
-     2^21-2^23 and on the mesh's axes (2^22's also on bls12-381 Fr); the
-     narrow K-mm-norm launches (`k_mm_norm_narrow`, r under a 64-row tile)
-     counted over a Groth16 2^22 prove and a PLONK 2^20 prove on the
-     benchmark's inputs (benchmark/configs, benchmark/traffic) under both
-     splits, the proofs equal, warm proves timed in turns;
+  8. K-mm, which no route of the program launches (held only), against its
+     plain version at (512, 512, 512), with its time and bound;
+  9. the NTT's stage split (`ntt_mm._split`): each 2^k NTT a driven path runs
+     (k = 11, 12, 16, 18-23, and a rank's 4096-point axes of the mesh's 2^24
+     NTT) timed, its inverse giving the input back; K-mm-norm against its
+     plain version at every stage shape of the split at 2^21-2^23 and on the
+     mesh's axes (2^22's also on bls12-381 Fr), none under a 64-row tile;
  10. Groth16 setup from a prepared .ptau: a power-19 bn128 .ptau built on the
      card from fixed secrets (every point by the port's batched
      double-and-add; sections 2-6, 12-15 as one contribution and
@@ -187,9 +175,8 @@ Phases (any failure exits non-zero before the last line):
  19. phase 5's 2^20 Groth16 prove on bls12-381 (point sections tiled from
      512 multiples of its G1 and 64 of its G2), with phase 5's checks and
      launch counts (12 K-mm-norm, 5 K-scan, no K-mm; K-field logged beside
-     phase 5's count); WARM_BLS warm proves (median, spread, peak device
-     memory) and one under torch.profiler; K-field's times on bls12-381 Fr
-     and Fq at (NL, 2^20); K-scan against its plain version at the prove's
+     phase 5's count); K-field's times on bls12-381 Fr and Fq at (NL,
+     2^20); K-scan against its plain version at the prove's
      three shapes, K-mm-norm on bls12-381 Fr at 1024^3 and
      K-field at every (field, elements) the prove gave it;
  20. phase 7's 2^18 PLONK prove on bls12-381 (SRS tiled from its 512
@@ -212,23 +199,22 @@ window as affine points, and timed on the whole shape.
 
 Depths cut for the time limit (no check dropped): phase 13's chain at
 CEREMONY_CHAIN_POWER, phase 16's prepare_phase2 at PREPARE_POWER (above);
-PAIRED_PROVES warm proves a route in phases 6 and 8, FFLONK_PROVES in phase
-12, WARM_BLS in phases 19 and 20; a shape held against the plain version in
-one phase is not held again in a later one.
+FFLONK_PROVES warm proves in phase 12, WARM_BLS in phase 20; a shape
+held against the plain version in one phase is not held again in a later
+one.  The whole proves' times of the benchmark's cells are the benchmark's
+(benchmark/run.py); bounds take the card's peaks from
+benchmark/harness/peaks.py.
 
-Every NTT stage of the proves goes through K-mm-norm, the one route of
-`ntt_mm._mm_stage`; K-mm is driven by phase 9.  The paired timings send a
-prove's stages the other way by patching `ntt_mm._mm_stage`.
+Every NTT stage goes through K-mm-norm, the one route of
+`ntt_mm._mm_stage`.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
-import dataclasses
 import functools
 import hashlib
-import importlib
 import io
 import json
 import logging
@@ -243,6 +229,7 @@ import time
 import numpy as np
 import torch
 
+from benchmark.harness import peaks
 from snarkjs_tpu_torch import _build, cli, tools, trace
 from snarkjs_tpu_torch.ceremony import bellman, keypair, ptau_ops, zkey_mpc
 from snarkjs_tpu_torch.curves import host_curve as hc
@@ -254,7 +241,7 @@ from snarkjs_tpu_torch.fields import fcuda, ftorch
 from snarkjs_tpu_torch.formats import points as pcodec
 from snarkjs_tpu_torch.formats import ptau as ptau_fmt
 from snarkjs_tpu_torch.formats.binfile import BinFile
-from snarkjs_tpu_torch.formats.r1cs import R1cs, read_r1cs
+from snarkjs_tpu_torch.formats.r1cs import read_r1cs
 from snarkjs_tpu_torch.formats.wtns import Witness, write_wtns
 from snarkjs_tpu_torch.formats.zkey import Groth16Zkey, read_groth16_zkey, read_plonk_zkey
 from snarkjs_tpu_torch.formats.zkey import read_fflonk_zkey
@@ -266,15 +253,13 @@ from snarkjs_tpu_torch.utils.chacha import ChaCha
 from snarkjs_tpu_torch.wasm import native as wasm_native
 from snarkjs_tpu_torch.wasm import witness_calculator as wvm
 from tests import _wasm_chain as wasm_chain
+from tests._torch_inputs import (add_products, build_ptau, circom_chain, madd_products,
+                                  plonk_circuit, point_tables, ptau_scalars, tiled)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "snarkjs_tpu_torch", "fixtures")
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15   # H100 SXM dense int8 tensor-core peak
-IMAD_PER_CLK_SM = 64        # 32-bit integer multiply-add results/clk/SM, cc 9.0
 N_CONSTRAINTS = 600_000
-PLONK_CONSTRAINTS = 200_000  # + 1 public-input row: domain 2^18
-PAIRED_PROVES = 2            # warm proves per NTT route in a paired timing
 BLS_HOLD_LANES = 1024        # K-scan's plain version runs on this many lanes of a
                              # bls12-381 prove's shape (a lane reads only its own
                              # points, and the MSMs' checks cover every lane)
@@ -353,46 +338,6 @@ def counts():
 
 
 @contextlib.contextmanager
-def unfused_stages():
-    """Send every NTT stage of a block through K-mm and the PyTorch
-    `_normalize_cols` (what `fused=False` asks of `ntt_mm.ntt`)."""
-    stage = ntt_mm._mm_stage
-    ntt_mm._mm_stage = lambda ctx, k, inverse, a, fused=True: stage(ctx, k, inverse, a, False)
-    try:
-        yield
-    finally:
-        ntt_mm._mm_stage = stage
-
-
-def paired_proves(prove, what):
-    """Warm proves alternating the default NTT route (K-mm-norm) and the other
-    (K-mm + `_normalize_cols`), PAIRED_PROVES each in one process: medians,
-    spread and peak device memory per route.  The proofs must be equal."""
-    ms = {"fused": [], "unfused": []}
-    peak = {"fused": 0, "unfused": 0}
-    proofs = set()
-    for _ in range(PAIRED_PROVES):
-        for route, ctx in (("fused", contextlib.nullcontext()), ("unfused", unfused_stages())):
-            torch.cuda.reset_peak_memory_stats()
-            with ctx:
-                t, got = wall_ms(prove)
-            ms[route].append(t)
-            peak[route] = max(peak[route], torch.cuda.max_memory_allocated())
-            proofs.add(json.dumps(got))
-    check(len(proofs) == 1, f"{what}: the two NTT routes give different proofs")
-    out = {}
-    for route, ts in ms.items():
-        out[route] = {"median_ms": float(np.median(ts)), "min_ms": min(ts), "max_ms": max(ts),
-                      "peak_gib": peak[route] / 2**30}
-        log(f"  {what}, {route} route, {len(ts)} warm proves alternating: median "
-            f"{out[route]['median_ms']:.1f} ms, spread {min(ts):.1f} .. {max(ts):.1f} ms, "
-            f"peak device memory {out[route]['peak_gib']:.2f} GiB")
-    log(f"  {what}: unfused - fused median = "
-        f"{out['unfused']['median_ms'] - out['fused']['median_ms']:.1f} ms; proofs equal")
-    return out
-
-
-@contextlib.contextmanager
 def recorded_shapes():
     """Count, per kernel, the shapes its wrapper is called with in a block:
     (r, q, m) for the two digit matmuls, the input's shape for the scan.  The
@@ -437,29 +382,6 @@ def rand_field(fp, n, dev, gen, wide=False):
     x[:, :k] = ftorch.to_tensor(
         np.array([fp.limbs(v) for v in edges[:k]], dtype=np.uint32).T, dev)
     return x
-
-
-def point_tables(cv, n1=512, n2=64):
-    """n1 multiples of G1 and n2 of G2, (i+1)*G, Montgomery limbs."""
-    fq = cv.fq
-    g1, acc = [], cv.g1
-    for _ in range(n1):
-        g1.append(acc)
-        acc = hc.g1_add(cv, acc, cv.g1)
-    g2, acc = [], cv.g2
-    for _ in range(n2):
-        g2.append(acc)
-        acc = hc.g2_add(cv, acc, cv.g2)
-    m = lambda vs: ftorch.np_from_ints(fq, [fq.to_mont(v) for v in vs])
-    return ((m([p[0] for p in g1]), m([p[1] for p in g1])),
-            ((m([p[0][0] for p in g2]), m([p[0][1] for p in g2])),
-             (m([p[1][0] for p in g2]), m([p[1][1] for p in g2]))))
-
-
-def tiled(t, n):
-    if isinstance(t, tuple):
-        return tuple(tiled(x, n) for x in t)
-    return np.ascontiguousarray(np.tile(t, (1, -(-n // t.shape[1])))[:, :n])
 
 
 def synthetic_key(cv, tables):
@@ -816,48 +738,6 @@ def phase_full_prove(dev, tables, cv=hc.BN254):
     return zkey, wit, prove_ms, launches, shapes, fseen
 
 
-def imad_per_s():
-    props = torch.cuda.get_device_properties(0)
-    clk = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True).stdout.split()
-    check(clk and clk[0].replace(".", "", 1).isdigit(),
-          f"nvidia-smi gave no max SM clock ({clk})")
-    mhz = float(clk[0])
-    log(f"  32-bit multiply-add rate: {IMAD_PER_CLK_SM} x "
-        f"{props.multi_processor_count} SMs x {mhz:.0f} MHz")
-    return IMAD_PER_CLK_SM * props.multi_processor_count * mhz * 1e6
-
-
-def mont_mul_imads(n32):
-    """32-bit multiply instructions of one CIOS product (field.cuh:fmul):
-    2*n32^2 wide 32x32->64 products (lo and hi, two each) and n32 low-half
-    products m = t[0] * np0."""
-    return 4 * n32 * n32 + n32
-
-
-def madd_products(ext):
-    """Full Montgomery products over the base field in one K-scan mixed add
-    (msm_scan.cu:rcb_madd, the operations of rcb.rcb_madd): 11 products and
-    two products by 3b.  On G1 3b is a small integer and those two are an add
-    ladder (fmul_small), no multiplies; on G2 3b is a full Fq2 element, so
-    all 13 are Fq2 products of three Fq products each."""
-    return 11 if ext == 1 else 3 * 13
-
-
-def bound(nbytes, ops, rate):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def add_products(ext):
-    """Full Montgomery products over the base field in one K-reduce add
-    (msm_reduce.cu:rcb_add, the operations of rcb.rcb_add): 12 products and
-    two products by 3b, an add ladder on G1; on G2 all 14 are Fq2 products
-    of three Fq products each."""
-    return 12 if ext == 1 else 3 * 14
-
-
 def reduce_work(dsort, RL, half):
     """(adds, rows): the complete adds phase 2 needs at least, in any order,
     and the rows it reads.  A window of RL lanes takes RL - 1 adds for the
@@ -904,35 +784,8 @@ def profile_busy(fn, warm_ms):
     return busy
 
 
-def phase_breakdown(dev, zkey, wit, prove_ms):
-    """Where the warm prove's time goes: the QAP and each MSM alone (host
-    clock around synchronised work), then one prove under torch.profiler
-    for device time per kernel.  The busy share is that device time over
-    the warm prove's wall time without the profiler (prove_ms), since the
-    profiler stretches the host side of the profiled prove."""
-    cv = hc.BN254
-    fr, fq = cv.fr, cv.fq
-    ctx = ftorch.get_ctx(fr.name)
-    ins = qap_inputs(zkey, wit, dev)
-    parts = {"qap": wall_ms(lambda: groth16.qap(ctx, zkey.domain_size, *ins))[0]}
-    a, b1, b2, c, h = groth16._dev_points(zkey, dev)
-    w = ins[-1]
-    p_odd = groth16.qap(ctx, zkey.domain_size, *ins)
-    g1 = msm_mod.MSMContext(ftorch.get_ctx(fq.name), fq, 1)
-    g2 = msm_mod.MSMContext(ftorch.get_ctx(fq.name), fq, 2)
-    for name, m, pts, sc in (("msm_A", g1, a, w), ("msm_B1", g1, b1, w),
-                             ("msm_B2", g2, b2, w),
-                             ("msm_C", g1, c, w[:, zkey.n_public + 1:]),
-                             ("msm_H", g1, h, p_odd)):
-        parts[name] = wall_ms(lambda: m.run(*pts, sc))[0]
-    log("  stage ms: " + json.dumps({k: round(v, 1) for k, v in parts.items()}))
-
-    profile_busy(lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev), prove_ms)
-    paired = paired_proves(lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev),
-                           "Groth16 2^20")
-    return parts, paired
-
-
+BIG = (1024, 1024, 1024)
+STAGE_SHAPES = {BIG: 12, (512, 512, 512): 8}   # a 2^18 PLONK prove's NTT stages
 # what has been held against the plain version so far in the run, by
 # (kernel, field): shapes of K-scan (field: the curve's Fq), K-mm and
 # K-mm-norm (Fr), element counts of K-field
@@ -980,7 +833,7 @@ def reduce_held(cv, m, st_all, dsort, held):
     return sum(a != b for a, b in zip(got, want)), plain_ms
 
 
-def reduce_case(cv, m, st_all, dsort, calls, path, rate32, errs, held):
+def reduce_case(cv, m, st_all, dsort, calls, path, errs, held):
     """K-reduce at the shape K-scan's output `st_all` has on a driven path
     (`calls` MSMs there): held against its plain version (on the first
     `held` lanes), its time on the whole shape, and its bound there from
@@ -997,8 +850,9 @@ def reduce_case(cv, m, st_all, dsort, calls, path, rate32, errs, held):
                   f"on {held} lanes")
     errs["msm_reduce"] = max(errs["msm_reduce"], e)
     adds, rows = reduce_work(dsort, RL, m.nb // 2)
-    bms, by = bound((nw * RL + rows) * nro2 * 4,
-                    adds * add_products(m.ext) * mont_mul_imads(cv.fq.nl // 2), rate32)
+    bs, by = peaks.bound_s((nw * RL + rows) * nro2 * 4,
+                           adds * add_products(m.ext) * peaks.imads_per_product(cv.fq.nl // 2))
+    bms = bs * 1e3
     log(f"  K-reduce {cv.name} {shape} cw={m.cw} x{calls} ({path}) == plain on {held} "
         f"lanes: {ms:.3f} ms  plain {plain_ms:.0f} ms  bound {bms:.3f} ms ({by}, {adds} adds)")
     out = {"path": path, "curve": cv.name, "ext": m.ext, "cw": m.cw, "shape": list(shape),
@@ -1009,7 +863,7 @@ def reduce_case(cv, m, st_all, dsort, calls, path, rate32, errs, held):
     return out
 
 
-def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None):
+def scan_case(cv, group, pts, scal, seen, path, errs, cw=16, lanes=None):
     """K-scan against its plain version on the input `run` builds for these
     points and scalars (window digits of cw bits), which must have a shape
     recorded in `seen`; its time and bound at that shape.  The kernel runs at
@@ -1034,8 +888,9 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None)
     HELD[("msm_scan", cv.fq.name)].add(shape)
     nw, C, nin, RL = shape
     nbytes = xyT.numel() * 4 + got.numel() * 4
-    wide = nw * C * RL * madd_products(m.ext) * mont_mul_imads(cv.fq.nl // 2)
-    bms, by = bound(nbytes, wide, rate32)
+    bs, by = peaks.bound_s(
+        nbytes, nw * C * RL * madd_products(m.ext) * peaks.imads_per_product(cv.fq.nl // 2))
+    bms = bs * 1e3
     log(f"  K-scan {cv.name} {group} {shape} x{seen[shape]} ({path}) == plain on {held} "
         f"lanes: {ms:.3f} ms  plain {plain_ms:.0f} ms ({held} lanes)  bound {bms:.3f} ms ({by})")
     out = {"path": path, "curve": cv.name, "group": group, "shape": list(shape),
@@ -1043,9 +898,17 @@ def scan_case(cv, group, pts, scal, seen, path, rate32, errs, cw=16, lanes=None)
            "bound_ms": bms, "bound_by": by}
     if held < shape[3]:
         out.update(plain_ms=None, plain_lanes_ms=plain_ms, plain_lanes=held)
-    out["reduce"] = reduce_case(cv, m, got, sorted_keys(xyT), seen[shape], path, rate32,
+    out["reduce"] = reduce_case(cv, m, got, sorted_keys(xyT), seen[shape], path,
                                 errs, held)
     return out
+
+
+def mm_bound_ms(nbytes, ops):
+    """A digit matmul's least time in ms: its bytes at the card's HBM rate
+    (benchmark/harness/peaks.py) or its int8 products at INT8_OPS_PER_S,
+    whichever is longer."""
+    tb, to = nbytes / peaks.HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def mm_case(dev, gen, kernel, shape, launches, path, errs, field="bn254_fr"):
@@ -1071,15 +934,14 @@ def mm_case(dev, gen, kernel, shape, launches, path, errs, field="bn254_fr"):
     HELD[(kernel, field)].add(tuple(shape))
     ms = cuda_ms(fn, 5)
     nd = W8.shape[0]
-    bms, by = bound(W8.numel() + D8.numel() + want.numel() * 4,
-                    2 * nd * nd * r * q * m, INT8_OPS_PER_S)
+    bms, by = mm_bound_ms(W8.numel() + D8.numel() + want.numel() * 4, 2 * nd * nd * r * q * m)
     log(f"  {kernel} {field} {shape} x{launches} ({path}) == plain: {ms:.3f} ms  "
         f"plain {plain_ms:.1f} ms  bound {bms:.3f} ms ({by})")
     return {"path": path, "field": field, "shape": list(shape), "launches": launches,
             "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
-def field_times(dev, gen, name, rate32):
+def field_times(dev, gen, name):
     """K-field's four ops on `name` at (NL, 2^20): CUDA-event time, device
     time a launch (torch.profiler), the plain version's time and the bound.
     Returns mont_mul's entry with every op's under "ops"."""
@@ -1096,9 +958,9 @@ def field_times(dev, gen, name, rate32):
         with ftorch.plain_versions():
             plain_ms = cuda_ms(lambda: fn(ctx, *args), 2)
         nbytes = (len(args) + 1) * ctx.nl * 4 * (1 << 20)
-        wide = mont_mul_imads(n32) * (1 << 20) if op == "mont_mul" else 0
-        bms, by = bound(nbytes, wide, rate32) if wide else (
-            nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+        bs, by = peaks.bound_s(
+            nbytes, peaks.imads_per_product(n32) * (1 << 20) if op == "mont_mul" else 0)
+        bms = bs * 1e3
         ops[op] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms,
                    "bound_by": by}
         log(f"  K-field {name} {op} ({ctx.nl}, 2^20): {ms:.4f} ms (CUDA events over 20 "
@@ -1107,11 +969,11 @@ def field_times(dev, gen, name, rate32):
     return dict(ops["mont_mul"], field=name, ops=ops)
 
 
-def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
+def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes):
     cv = hc.BN254
     ctx = ftorch.get_ctx("bn254_fr")
     # K-field at (16, 2^20), the NTT / coset shape
-    entries = {"field_ops": field_times(dev, gen, "bn254_fr", rate32)}
+    entries = {"field_ops": field_times(dev, gen, "bn254_fr")}
 
     # K-scan at every shape the prove gave it: the A, B1 and C inputs share
     # one (A's is taken), then H's (G1) and B2's (G2)
@@ -1119,7 +981,7 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     w = ftorch.to_tensor(wit.values, dev)
     p_odd = groth16.qap(ctx, zkey.domain_size, *qap_inputs(zkey, wit, dev))
     seen = shapes["msm_scan"]
-    scans = [scan_case(cv, group, pts, scal, seen, "groth16", rate32, errs)
+    scans = [scan_case(cv, group, pts, scal, seen, "groth16", errs)
              for group, pts, scal in (("g1", a_pts, w), ("g1", h_pts, p_odd),
                                       ("g2", b2_pts, w))]
     check({tuple(e["shape"]) for e in scans} == set(seen),
@@ -1127,105 +989,48 @@ def phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32):
     entries["msm_scan"] = scans
     del p_odd
 
-    # K-mm-norm's only shape in this prove is 1024^3 (12 stages); K-mm is held
-    # and timed there too, beside the library yardstick
-    check(dict(shapes["digit_mm_norm"]) == {(1024, 1024, 1024): 12},
+    # K-mm-norm's only shape in this prove is 1024^3 (12 stages, 12 of the 20
+    # of a PLONK prove); K-mm is held and timed there too, both beside the
+    # library yardstick
+    check(dict(shapes["digit_mm_norm"]) == {BIG: 12},
           f"the Groth16 prove's K-mm-norm shapes are not 12 x 1024^3: "
           f"{shapes['digit_mm_norm']}")
-    W8, D8 = mm_inputs(dev, gen)
-    DT = ntt_mm._y_major(D8)          # the layout the NTT hands the kernels
-    nd, r, q = W8.shape
-    mm = D8.shape[2]
-    got = ntt_mm.digit_mm(W8, DT, y_major=True)
-    plain_ms, want = wall_ms(lambda: ntt_mm.digit_mm_plain(W8, D8))
-    e = max(max_abs_err(got, want), max_abs_err(ntt_mm.digit_mm(W8, D8), want))
-    check(e == 0, f"K-mm differs from plain ({e})")
-    errs["digit_mm"] = e
-    ms = cuda_ms(lambda: ntt_mm.digit_mm(W8, DT, y_major=True), 5)
-    log(f"  K-mm at 1024^3 from the JAX layout (nd, q, m), transposed in the wrapper: "
-        f"{cuda_ms(lambda: ntt_mm.digit_mm(W8, D8), 5):.3f} ms, of which the transpose "
-        f"{cuda_ms(lambda: ntt_mm._y_major(D8), 5):.3f} ms")
-    nc = 2 * nd - 1
-    toe = torch.zeros((nd, q, nc, mm), dtype=torch.int8, device=dev)
-    for i in range(nd):
-        toe[i, :, i:i + nd] = D8.permute(1, 0, 2)
-    Wcat = W8.permute(1, 0, 2).reshape(r, nd * q).contiguous()
-    toe = toe.reshape(nd * q, nc * mm)
-    lib = torch._int_mm(Wcat, toe).reshape(r, nc, mm).permute(1, 0, 2)
-    check(max_abs_err(lib, got) == 0, "torch._int_mm yardstick differs from K-mm")
-    library_ms = cuda_ms(lambda: torch._int_mm(Wcat, toe), 3)
-    check(ms < library_ms, f"K-mm ({ms:.3f} ms) is not faster than torch._int_mm "
-                           f"({library_ms:.3f} ms)")
-    # the library's way to the normalised limbs: the same _int_mm, then the
-    # PyTorch _normalize_cols on its columns
-    fp = ctx.fp
-    lib_norm_ms = cuda_ms(lambda: ntt_mm._normalize_cols(fp, lib), 3)
-    lib_limbs = ntt_mm._normalize_cols(fp, lib)
-    del toe, lib, want
-    bms, by = bound(W8.numel() + D8.numel() + got.numel() * 4,
-                    2 * nd * nd * r * q * mm, INT8_OPS_PER_S)
-    log(f"  K-mm (33,1024,1024)x(33,1024,1024) == plain: {ms:.3f} ms  plain "
-        f"{plain_ms:.1f} ms  torch._int_mm {library_ms:.3f} ms  bound {bms:.3f} ms ({by})")
-    entries["digit_mm"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                           "bound_by": by, "library_ms": library_ms}
-
-    # K-mm-norm at the same 1024^3 stage (all 12 stages of the Groth16 prove,
-    # 12 of the 20 of a PLONK prove)
-    gotn = ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True)
-    plain_n_ms, wantn = wall_ms(lambda: ntt_mm.digit_mm_norm_plain(fp, W8, D8))
-    e = max(max_abs_err(gotn, wantn), max_abs_err(gotn, lib_limbs),
-            max_abs_err(ntt_mm.digit_mm_norm(fp, W8, D8), wantn))
-    check(e == 0, f"K-mm-norm differs from plain or from _int_mm + normalize ({e})")
-    errs["digit_mm_norm"] = max(errs["digit_mm_norm"], e)
-    HELD[("digit_mm", "bn254_fr")].add(BIG)
-    HELD[("digit_mm_norm", "bn254_fr")].add(BIG)
-    ms_n = cuda_ms(lambda: ntt_mm.digit_mm_norm(fp, W8, DT, y_major=True), 5)
-    unfused_ms = cuda_ms(
-        lambda: ntt_mm._normalize_cols(fp, ntt_mm.digit_mm(W8, DT, y_major=True)), 5)
-    bms, by = bound(W8.numel() + D8.numel() + gotn.numel() * 4,
-                    2 * nd * nd * r * q * mm, INT8_OPS_PER_S)
-    log(f"  K-mm-norm (33,1024,1024)x(33,1024,1024) == plain: {ms_n:.3f} ms  "
-        f"K-mm + PyTorch _normalize_cols {unfused_ms:.3f} ms  plain {plain_n_ms:.1f} ms  "
-        f"torch._int_mm + _normalize_cols {library_ms:.3f} + {lib_norm_ms:.3f} ms  "
-        f"bound {bms:.3f} ms ({by})")
-    entries["digit_mm_norm"] = {
-        "ms": ms_n, "plain_ms": plain_n_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": library_ms + lib_norm_ms, "unfused_ms": unfused_ms}
+    lib_ms, lib_norm_ms = int_mm_yardstick(dev, gen, ctx.fp)
+    mm = mm_case(dev, gen, "digit_mm", BIG, 0, "held only", errs)
+    check(mm["ms"] < lib_ms, f"K-mm ({mm['ms']:.3f} ms) is not faster than torch._int_mm "
+                             f"({lib_ms:.3f} ms)")
+    entries["digit_mm"] = dict(mm, library_ms=lib_ms)
+    entries["digit_mm_norm"] = dict(mm_case(dev, gen, "digit_mm_norm", BIG, 12, "groth16", errs),
+                                    library_ms=lib_ms + lib_norm_ms)
     return entries
 
 
+def int_mm_yardstick(dev, gen, fp):
+    """The library's way to K-mm's columns at 1024^3, torch._int_mm on the
+    Toeplitz-expanded digit matrix, and to K-mm-norm's limbs, the same
+    product and then the PyTorch `_normalize_cols`: each equal to the
+    kernel's output; their times (ms)."""
+    W8, D8 = mm_inputs(dev, gen, fp.name)
+    nd, r, q = W8.shape
+    m, nc = D8.shape[2], 2 * nd - 1
+    toe = torch.zeros((nd, q, nc, m), dtype=torch.int8, device=dev)
+    for i in range(nd):
+        toe[i, :, i:i + nd] = D8.permute(1, 0, 2)
+    Wcat = W8.permute(1, 0, 2).reshape(r, nd * q).contiguous()
+    toe = toe.reshape(nd * q, nc * m)
+    lib = torch._int_mm(Wcat, toe).reshape(r, nc, m).permute(1, 0, 2)
+    check(max_abs_err(lib, ntt_mm.digit_mm(W8, D8)) == 0,
+          "torch._int_mm yardstick differs from K-mm")
+    check(max_abs_err(ntt_mm._normalize_cols(fp, lib), ntt_mm.digit_mm_norm(fp, W8, D8)) == 0,
+          "torch._int_mm + _normalize_cols differs from K-mm-norm")
+    lib_ms = cuda_ms(lambda: torch._int_mm(Wcat, toe), 3)
+    norm_ms = cuda_ms(lambda: ntt_mm._normalize_cols(fp, lib), 3)
+    log(f"  torch._int_mm at 1024^3 == K-mm: {lib_ms:.3f} ms; + _normalize_cols == K-mm-norm: "
+        f"{norm_ms:.3f} ms")
+    return lib_ms, norm_ms
+
+
 # ------------------------------------------------------------- PLONK phases
-
-def plonk_circuit(fr, nc=PLONK_CONSTRAINTS):
-    """The squaring chain of `nc` constraints as an r1cs (wire 0 = 1, wire 1 =
-    public x, wire i+2 = wire_{i+1}^2) with its witness."""
-    i = np.arange(nc, dtype=np.int32)
-    r1cs = R1cs(
-        n8=fr.n8, prime=fr.p, n_wires=nc + 2, n_pub_out=0, n_pub_in=1, n_prv_in=0,
-        n_labels=nc + 2, n_constraints=nc, m=np.tile(np.array([0, 1, 2], np.int32), nc),
-        c=np.repeat(i, 3), s=np.stack([i + 1, i + 1, i + 2], 1).reshape(-1),
-        vals=np.tile(np.array(fr.limbs(1), dtype=np.uint32)[:, None], (1, 3 * nc)))
-    w = [1, 0xDEADBEEF]
-    for _ in range(nc):
-        w.append(w[-1] * w[-1] % fr.p)
-    return r1cs, Witness(n8=fr.n8, q=fr.p, n=len(w), values=ftorch.np_from_ints(fr, w))
-
-
-def circom_chain(fr, nc=PLONK_CONSTRAINTS):
-    """`plonk_circuit`'s chain with the coefficients circom writes for
-    `y <== x * x`: p - 1 on one factor and on the output ((-x) x = -y), the
-    negated factor alternating between A and B.  Every point section of the
-    Groth16 setup then holds full-width scalars, so each of its segmented
-    MSMs runs all 254 double-and-add steps.  The witness is the chain's.
-    `tests/_wasm_chain.py` writes this circuit's .r1cs and its circom .wasm."""
-    r1cs, wit = plonk_circuit(fr, nc)
-    i = np.arange(r1cs.n_constraints)
-    neg = np.array(fr.limbs(fr.p - 1), dtype=np.uint32)[:, None]
-    vals = r1cs.vals.copy()          # constraint i: A, B, C at 3i, 3i + 1, 3i + 2
-    vals[:, 3 * i + i % 2] = neg
-    vals[:, 3 * i + 2] = neg
-    return dataclasses.replace(r1cs, vals=vals), wit
-
 
 def plonk_synthetic_key(cv, tables, r1cs, dev):
     """The PLONK key of `r1cs`, written by the port's own writer on the card.
@@ -1366,11 +1171,9 @@ def phase_plonk_prove(dev, tables, cv=hc.BN254):
             "peak_gib": peak / 2**30}
 
 
-STAGE_SHAPES = {(1024, 1024, 1024): 12, (512, 512, 512): 8}
-BIG = (1024, 1024, 1024)
 
 
-def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32, cv=hc.BN254,
+def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, cv=hc.BN254,
                        path="plonk"):
     """K-scan and K-mm-norm against their plain versions at every shape the
     counted PLONK prove called them with, each with its time and bound there
@@ -1383,108 +1186,32 @@ def phase_plonk_shapes(dev, gen, zk, pol_a, shapes, errs, rate32, cv=hc.BN254,
     M = zk.ptau[2].shape[0]
     scal = fops.pad_to(ftorch.from_mont(ctx, pol_a.contiguous()), M)
     scan = scan_case(cv, "g1", plonk._dev_key(zk, dev, M)["ptau"], scal, seen,
-                     path, rate32, errs)
+                     path, errs)
     norm = shapes["digit_mm_norm"]
     check(dict(norm) == STAGE_SHAPES,
           f"the PLONK prove's 20 NTT stage shapes are not the expected ones: {dict(norm)}")
     return scan, norm_cases(dev, gen, norm, path, errs, cv.fr.name)
 
 
-def phase_ntt_path(dev, gen, errs):
-    """K-mm's path: a forward and an inverse 2^20 NTT and an inverse 2^18 NTT on
-    bn254 Fr with `fused=False`, counted; each result equal limb for limb to
-    the default route's; then K-mm against its plain version at every shape
-    the path gave it but 1024^3, which the Groth16 phase held and timed."""
-    ctx = ftorch.get_ctx("bn254_fr")
-    a20 = rand_field(ctx.fp, 1 << 20, dev, gen)
-    a18 = rand_field(ctx.fp, 1 << 18, dev, gen)
-    cases = (("ntt 2^20", ntt_mm.ntt, a20), ("intt 2^20", ntt_mm.intt, a20),
-             ("intt 2^18", ntt_mm.intt, a18))
-    with recorded_shapes() as shapes:
-        reset_counts()
-        ms, got = wall_ms(lambda: [fn(ctx, a, fused=False) for _, fn, a in cases])
-        launches = counts()
-    log(f"  ntt, intt 2^20 and intt 2^18 with fused=False: {ms:.1f} ms; launches {launches}")
-    log(f"  shapes: {shapes_json(shapes)}")
-    check(launches["digit_mm"] == 6 and launches["digit_mm_norm"] == 0
-          and launches["field_ops"] > 0,
-          "NTT path: expected 6 K-mm launches, no K-mm-norm, and K-field twiddles")
-    check(dict(shapes["digit_mm"]) == {BIG: 4, (512, 512, 512): 2},
-          f"the NTT path's K-mm shapes are not the expected ones: {dict(shapes['digit_mm'])}")
-    for (what, fn, a), g in zip(cases, got):
-        e = max_abs_err(g, fn(ctx, a))
-        check(e == 0, f"{what}: fused=False differs from the default route ({e})")
-        errs["digit_mm"] = max(errs["digit_mm"], e)
-    check(max_abs_err(ntt_mm.intt(ctx, got[0]), a20) == 0, "intt(ntt(a)) != a at 2^20")
-    log("  each == the default route's output limb for limb; intt(ntt(a)) == a")
-    mms = [mm_case(dev, gen, "digit_mm", sh, n, "ntt fused=False", errs)
-           for sh, n in sorted(shapes["digit_mm"].items()) if sh != BIG]
-    return launches, shapes, mms
-
-
-# the split rules the phase compares: the rule of `ntt_mm._split`; the
-# earlier fixed first radix (2^22 as 2 + 10 + 10); one stage of 2^10, the
-# rest balanced (2^22 as 6 + 6 + 10).  Reached by patching `_split` here only.
-SPLIT_RULES = {
-    "balanced": ntt_mm._split,
-    "fixed": lambda k: min(k, ntt_mm.MAX_LOG_R),
-}
-SPLIT_RULES["ten_first"] = lambda k: (ntt_mm.MAX_LOG_R if -(-k // ntt_mm.MAX_LOG_R) > 2
-                                      else SPLIT_RULES["balanced"](k))
 SPLIT_LOGS = (11, 12, 16, 18, 19, 20, 21, 22, 23)   # 2^k NTTs of the driven paths
 SPLIT_HOLD_LOGS = (21, 22, 23)     # sizes whose stage shapes are held against plain
 MESH_AXIS = (1024, 4096)           # a rank's block of the 2^24 four-step NTT on four
                                    # ranks: 1024 columns, each a 4096-point axis
 
 
-@contextlib.contextmanager
-def split_rule(name):
-    """Every NTT of a block split by SPLIT_RULES[name]."""
-    ntt_mm._split = SPLIT_RULES[name]
-    try:
-        yield
-    finally:
-        ntt_mm._split = SPLIT_RULES["balanced"]
-
-
 def split_stages(k):
-    """The log radices of a 2^k NTT's stages under the `_split` in force,
-    in the order `_ntt_last` runs them."""
+    """The log radices of a 2^k NTT's stages under `ntt_mm._split`, in the
+    order `_ntt_last` runs them."""
     k1 = ntt_mm._split(k)
     return [k] if k1 == k else split_stages(k - k1) + [k1]
 
 
-def narrow_counts(prove):
-    """K-mm-norm's launches and its narrow ones (r under a tile) in one call."""
-    reset_counts()
-    prove()
-    torch.cuda.synchronize()
-    c = trace.counters()
-    return {"k_mm_norm": c["k_mm_norm"], "k_mm_norm_narrow": c["k_mm_norm_narrow"]}
-
-
-def bench_cell(config, traffic, seed, dev):
-    """The inputs of a benchmark cell (benchmark/configs, benchmark/traffic),
-    made as the benchmark makes them from `seed`, and its first request."""
-    from benchmark.harness import traffic as traffic_mod
-
-    read = lambda *p: json.load(open(os.path.join(HERE, "benchmark", *p)))
-    mix = read("traffic", f"{traffic}.json")
-    family = importlib.import_module(f"benchmark.configs.{config}")
-    cell = family.make(read("configs", f"{config}.json"), mix, seed, dev)
-    return cell, next(traffic_mod.stream(mix, seed))
-
-
 def phase_ntt_split(dev, gen, errs):
-    """The NTT's stage split (`ntt_mm._split`) against the earlier fixed
-    first radix: each 2^k NTT of SPLIT_LOGS and a rank's axes of the mesh's
-    2^24 NTT timed under both rules in turns (CUDA events), the outputs
-    limb-equal; at 2^22 the rule of one 2^10 stage and the rest balanced too;
-    K-mm-norm against its plain version at every stage shape of the rule at
-    SPLIT_HOLD_LOGS (2^22 on both Fr fields) and on the mesh's axes; then
-    `k_mm_norm_narrow` over a Groth16 2^22 prove and a PLONK 2^20 prove (the
-    benchmark's cells' inputs) under both rules, the proofs equal, with their
-    warm times in turns."""
+    """The NTT's stage split (`ntt_mm._split`): each 2^k NTT of SPLIT_LOGS
+    and a rank's axes of the mesh's 2^24 NTT timed (CUDA events), its inverse
+    giving the input back limb for limb; K-mm-norm against its plain version
+    at every stage shape at SPLIT_HOLD_LOGS (2^22 on both Fr fields) and on
+    the mesh's axes, each of at least NORM_TILE_ROWS rows."""
     ctx = ftorch.get_ctx("bn254_fr")
     fp = ctx.fp
     rows, seen = [], collections.Counter()
@@ -1493,68 +1220,28 @@ def phase_ntt_split(dev, gen, errs):
     cases.append(("mesh 2^24 axes", rand_field(fp, MESH_AXIS[0] * MESH_AXIS[1], dev, gen)
                   .reshape(fp.nl, *MESH_AXIS), 24))
     for what, x, k in cases:
-        rules = ("balanced", "fixed", "ten_first") if k == 22 else ("balanced", "fixed")
-        call = lambda inverse=False: ntt_mm._ntt_last(ctx, x, inverse)
-        out, ms = {}, {r: [] for r in rules}
-        for r in rules:
-            with split_rule(r):
-                out[r] = (call(), call(True))
-        for r in rules:
-            check(all(max_abs_err(a, b) == 0 for a, b in zip(out[r], out["balanced"])),
-                  f"NTT {what}: the {r} split differs from the balanced one")
-        iters = 20 if k <= 16 else 5
-        for r in rules + rules[::-1]:
-            with split_rule(r):
-                ms[r].append(cuda_ms(call, iters))
+        call = lambda: ntt_mm._ntt_last(ctx, x, False)
+        back = ntt_mm._ntt_last(ctx, call().transpose(1, 2).contiguous(), True)
+        check(max_abs_err(back.transpose(1, 2), x) == 0,
+              f"NTT {what}: the inverse NTT does not give the input back")
+        ms = cuda_ms(call, 20 if k <= 16 else 5)
         if k in SPLIT_HOLD_LOGS or k == 24:
             with recorded_shapes() as shapes:
                 call()
             seen.update(shapes["digit_mm_norm"])
-        row = {"ntt": what, "stages": {}}
-        for r in rules:
-            with split_rule(r):
-                row["stages"][r] = split_stages(x.shape[-1].bit_length() - 1)
-            row[f"{r}_ms"] = float(np.mean(ms[r]))
-        rows.append(row)
-        log(f"  NTT {what}: " + ", ".join(
-            f"{r} {'+'.join(map(str, row['stages'][r]))} {row[f'{r}_ms']:.3f} ms "
-            f"({' / '.join(f'{t:.3f}' for t in ms[r])})" for r in rules) + "; outputs equal")
-    del cases, out
+        stages = split_stages(x.shape[-1].bit_length() - 1)
+        rows.append({"ntt": what, "stages": stages, "ms": ms})
+        log(f"  NTT {what}: {'+'.join(map(str, stages))} {ms:.3f} ms; inverse gives the input")
+    del cases, back
     torch.cuda.empty_cache()
     check(all(sh[0] >= ntt_mm.NORM_TILE_ROWS for sh in seen),
-          f"a stage of the balanced split at 2^21-2^23 or the mesh's axes is narrow: {seen}")
-    log(f"  stage shapes of the balanced split at 2^21, 2^22, 2^23 and the mesh's axes: "
+          f"a stage of the split at 2^21-2^23 or the mesh's axes is narrow: {seen}")
+    log(f"  stage shapes of the split at 2^21, 2^22, 2^23 and the mesh's axes: "
         f"{shapes_json({'digit_mm_norm': seen})}")
     norms = norm_cases(dev, gen, seen, "ntt split", errs)
     at22 = {sh: n for sh, n in seen.items() if sh[0] * sh[2] == 1 << 22}
     norms += norm_cases(dev, gen, at22, "ntt split", errs, "bls12_381_fr")
-
-    proves = {}
-    for what, config, traffic in (("groth16 2^22", "groth16_bn128", "p22"),
-                                  ("plonk 2^20", "plonk_bn128", "p20")):
-        t = time.perf_counter()
-        cell, req = bench_cell(config, traffic, 20, dev)
-        log(f"  {what}: the benchmark's inputs made in {time.perf_counter() - t:.1f} s")
-        got, times, counted = {}, {r: [] for r in ("balanced", "fixed")}, {}
-        for r in ("balanced", "fixed"):
-            with split_rule(r):
-                cell.op(req)                       # builds the rule's tables
-                counted[r] = narrow_counts(lambda: got.setdefault(r, cell.op(req)))
-        check(json.dumps(got["balanced"]) == json.dumps(got["fixed"]),
-              f"{what}: the two splits give different proofs")
-        for r in ("balanced", "fixed", "fixed", "balanced"):
-            with split_rule(r):
-                times[r].append(wall_ms(lambda: cell.op(req))[0])
-        cell.free()
-        del cell
-        torch.cuda.empty_cache()
-        check(counted["balanced"]["k_mm_norm_narrow"] == 0,
-              f"{what}: narrow K-mm-norm launches under the balanced split")
-        proves[what] = {r: dict(counted[r], warm_ms=times[r]) for r in counted}
-        log(f"  {what}: proofs equal; " + "; ".join(
-            f"{r}: K-mm-norm {c['k_mm_norm']}, narrow {c['k_mm_norm_narrow']}, warm "
-            f"{' / '.join(f'{t:.1f}' for t in times[r])} ms" for r, c in counted.items()))
-    return {"ntts": rows, "proves": proves, "norms": norms}
+    return {"ntts": rows, "norms": norms}
 
 
 class RoundClock:
@@ -1577,16 +1264,6 @@ class RoundClock:
                 for nm, t0, t1 in zip(names, times, times[1:])}
 
 
-def phase_plonk_times(dev, zk, wit, b, prove_ms):
-    paired = paired_proves(lambda: plonk.prove(zk, wit, b=b, device=dev), "PLONK 2^18")
-    clock = RoundClock()
-    plonk.prove(zk, wit, b=b, device=dev, logger=clock)
-    torch.cuda.synchronize()
-    log("  rounds ms: " + json.dumps(clock.rounds_ms(time.perf_counter())))
-    profile_busy(lambda: plonk.prove(zk, wit, b=b, device=dev), prove_ms)
-    return paired
-
-
 # ------------------------------------------------------------- setup phase
 
 SETUP_POWER = 19   # the .ptau: one power above the 2^18 circuits
@@ -1606,61 +1283,12 @@ def setup_secrets():
     return {k: key[k]["prvKey"] for k in ("tau", "alpha", "beta")}
 
 
-def ptau_scalars(cv, power, tau, alpha, beta):
-    """The scalars of every point of the prepared .ptau of `power` that one
-    contribution of (tau, alpha, beta) and preparePhase2 leave: section id ->
-    (scalars, G2?).  Sections 2-6 hold tau^i, alpha tau^i, beta tau^i and
-    beta; 12-15 the Lagrange values of each power 0 .. power (12 also
-    power + 1), times alpha in 14 and beta in 15.  Section 12's top block is
-    the group iFFT of 2^(power+1) - 1 tau points and one zero point
-    (ptau_ops.prepare_phase2), so its scalars are L_j(tau) - tau^(m-1) w^j / m
-    with m = 2^(power+1)."""
-    fr = cv.fr
-    p = fr.p
-    n = 1 << power
-    taus, t = [], 1
-    for _ in range(2 * n - 1):
-        taus.append(t)
-        t = t * tau % p
-    scaled = lambda k, vs: [k * v % p for v in vs]
-    lag = [v for q in range(power + 1) for v in groth16_setup.lagrange_at(fr, tau, 1 << q)]
-    m = 2 * n
-    top = groth16_setup.lagrange_at(fr, tau, m)
-    c, wj, w = taus[m - 2] * tau % p * pow(m, p - 2, p) % p, 1, fr.w[power + 1]
-    for j in range(m):
-        top[j] = (top[j] - c * wj) % p
-        wj = wj * w % p
-    return {2: (taus, False), 3: (taus[:n], True), 4: (scaled(alpha, taus[:n]), False),
-            5: (scaled(beta, taus[:n]), False), 6: ([beta], True), 12: (lag + top, False),
-            13: (lag, True), 14: (scaled(alpha, lag), False), 15: (scaled(beta, lag), False)}
-
-
-def build_ptau(cv, power, scalars, dev):
-    """The .ptau whose points are [k]G for the scalars of `ptau_scalars`, all
-    G1 points from one call of the port's `_points_from_scalars` and all G2
-    points from another (the batched double-and-add on the card, in batches
-    of its DEVICE_BATCH).  No contribution record."""
-    fq = cv.fq
-    pt = ptau_fmt.PtauFile(cv, power, power)
-    for g2 in (False, True):
-        sids = [sid for sid, (_, is_g2) in scalars.items() if is_g2 == g2]
-        ks = [k for sid in sids for k in scalars[sid][0]]
-        lem = (pcodec.g2_lem_to_bytes if g2 else pcodec.g1_lem_to_bytes)(
-            fq, *groth16_setup._points_from_scalars(cv, ks, g2, dev))
-        size, pos = (4 if g2 else 2) * fq.n8, 0
-        for sid in sids:
-            n = len(scalars[sid][0]) * size
-            pt.sections[sid] = lem[pos:pos + n]
-            pos += n
-    return pt
-
-
 def zkey_sections(data):
     bf = BinFile(data, "zkey")
     return {sid: bf.read_section(sid) for sid in sorted(bf.sections)}
 
 
-def phase_setup(dev, gen, errs, rate32):
+def phase_setup(dev, gen, errs):
     """Groth16 and PLONK setup from a prepared .ptau on the card: the
     power-19 .ptau built from setup_secrets() (through `tobytes`/`read_ptau`),
     K-field held at the build's batch size and at a ragged one, the Groth16
@@ -1800,7 +1428,7 @@ def phase_setup(dev, gen, errs, rate32):
     bases = (ftorch.to_tensor(lx, dev), ftorch.to_tensor(ly, dev),
              torch.from_numpy(linf).to(dev))
     scan = scan_case(cv, "g1", bases, rand_field(fr, domain, dev, gen), shapes["msm_scan"],
-                     "plonk setup", rate32, errs)
+                     "plonk setup", errs)
     check(set(shapes["digit_mm_norm"]) <= set(STAGE_SHAPES) and not shapes["digit_mm"],
           f"the PLONK setup gave the NTT kernels new shapes: {shapes_json(shapes)}")
     del bases
@@ -1830,7 +1458,7 @@ def srs_spot_check(cv, zk, tau, idxs):
               f"FFLONK SRS point {i} differs from [tau^{i}]G1")
 
 
-def phase_fflonk(dev, gen, errs, rate32, ptau):
+def phase_fflonk(dev, gen, errs, ptau):
     """FFLONK on bn128 at domain 2^18: the key from a secret tau on the card,
     `setup_from_ptau` at 2^16 from phase 10's .ptau against
     `setup_from_secrets` with its tau, a counted prove that passes the
@@ -1965,8 +1593,7 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
         seen = shapes[path]["msm_scan"]
         check(len(seen) == 1, f"FFLONK {path}: K-scan shapes {dict(seen)}")
         scans.append(scan_case(cv, "g1", tuple(a[..., :m] for a in srs),
-                               rand_field(fr, m, dev, gen), seen, "fflonk " + path,
-                               rate32, errs))
+                               rand_field(fr, m, dev, gen), seen, "fflonk " + path, errs))
     norm_shapes = collections.Counter()
     for seen in shapes.values():
         norm_shapes.update(seen["digit_mm_norm"])
@@ -1981,7 +1608,6 @@ def phase_fflonk(dev, gen, errs, rate32, ptau):
             "prove_ms": prove_ms, "peak_gib": peak / 2**30, "warm": warm,
             "rounds_ms": rounds, "busy_ms": busy,
             "launches": launches, "total_s": total, "scans": scans, "norms": norms}
-
 
 
 # ------------------------------------------------------------ ceremony phase
@@ -2005,14 +1631,9 @@ def ceremony_predicted(power):
     and 277 a G2 step (jac_dbl + jac_add + select over gops), 254 steps a
     batch.  contribute: one G1 batch (sections 2, 4, 5) and one G2 batch
     (3, 6).  prepare_phase2: stages 1 .. K-1 of each group's largest block
-    2^K (K = power + 1 on G1, power on G2), one batch each.  Beside them the
-    JAX structure's count: k + 1 batches a block of 2^k above 2^8 (smaller
-    ones on the host), one block of each size a section."""
+    2^K (K = power + 1 on G1, power on G2), one batch each."""
     g1, g2 = 254 * 71, 254 * 277
-    jax = lambda top: sum(k + 1 for k in range(9, top + 1))
-    return {"contribute": g1 + g2, "prepare_phase2": power * g1 + (power - 1) * g2,
-            "prepare_phase2_jax_structure":
-                (jax(power + 1) + 2 * jax(power)) * g1 + jax(power) * g2}
+    return {"contribute": g1 + g2, "prepare_phase2": power * g1 + (power - 1) * g2}
 
 
 def field_cases(dev, gen, errs, sizes, what, field="bn254_fq"):
@@ -2055,7 +1676,7 @@ def norm_cases(dev, gen, seen, path, errs, field="bn254_fr"):
             for sh in held_before("digit_mm_norm", seen, path, field)]
 
 
-def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
+def ceremony_scans(cv, seen, pts, gen, errs, path="ceremony verify"):
     """K-scan against its plain version at every shape a path gave it but
     those held earlier in the run: the input is rebuilt from the .ptau's
     points (tiled) and random scalars at the point count C * RL, which gives
@@ -2075,7 +1696,7 @@ def ceremony_scans(cv, seen, pts, gen, rate32, errs, path="ceremony verify"):
             scal = torch.stack([scal & 0xFF, (scal >> 8) & 0xFF], dim=1).reshape(-1, n)
         out.append(scan_case(cv, group, (tile(x), tile(y), torch.zeros(n, dtype=torch.bool,
                                                                       device=dev)),
-                             scal, seen, path, rate32, errs, cw=cw, lanes=RL))
+                             scal, seen, path, errs, cw=cw, lanes=RL))
     return out
 
 
@@ -2106,7 +1727,7 @@ def blocks_stage_busy(cv, g2, blocks, dev, what):
     return {"ms": ms, "lanes": lanes, "field_ops": c["field_ops"], "busy_ms": busy}
 
 
-def phase_ceremony(dev, gen, errs, rate32, ptau):
+def phase_ceremony(dev, gen, errs, ptau):
     """The powers-of-tau ceremony on bn128 at power 19 (SETUP_POWER): one
     `contribute` to a blank accumulator with ChaCha(CEREMONY_SEED) gives
     phase 10's sections 2-6.  One at CEREMONY_CHAIN_POWER with the same seed
@@ -2171,8 +1792,7 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
         f"2^{CEREMONY_CHAIN_POWER} == phase 10's prefixes, 12's last block == phase 10's "
         f"by the zero-point identity; K-field launches "
         f"{launches['prepare_phase2']['field_ops']} (predicted {pred_prep['prepare_phase2']} in "
-        f"the stages' double-and-adds, plus the butterflies and the affine forms; the JAX "
-        f"structure: about {pred_prep['prepare_phase2_jax_structure']})")
+        f"the stages' double-and-adds, plus the butterflies and the affine forms)")
 
     with recorded_shapes() as v_shapes:
         reset_counts()
@@ -2253,7 +1873,7 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
     t = time.perf_counter()
     scans = ceremony_scans(cv, v_shapes["msm_scan"],
                            {"g1": (put(x1), put(y1)), "g2": (put(x2), put(y2))},
-                           gen, rate32, errs)
+                           gen, errs)
     steps["kscan_vs_plain"] = (time.perf_counter() - t) * 1e3
     check(not v_shapes["digit_mm"], "verify launched K-mm")
     norms = norm_cases(dev, gen, v_shapes["digit_mm_norm"], "ceremony verify", errs)
@@ -2261,7 +1881,6 @@ def phase_ceremony(dev, gen, errs, rate32, ptau):
     log(f"  ceremony phase steps ms: {json.dumps({k: round(v, 1) for k, v in steps.items()})}")
     log(f"  ceremony peak device memory {peak:.2f} GiB; phase total {total:.1f} s")
     pred["prepare_phase2"] = pred_prep["prepare_phase2"]
-    pred["prepare_phase2_jax_structure"] = pred_prep["prepare_phase2_jax_structure"]
     return {"power": power, "chain_power": CEREMONY_CHAIN_POWER, "steps_ms": steps,
             "launches": launches, "predicted": pred,
             "stages": stages, "peak_gib": peak, "total_s": total, "scans": scans,
@@ -2331,7 +1950,7 @@ def with_section(zkey, sid, payload):
     return zkey[:sec.pos] + payload + zkey[sec.pos + sec.size:]
 
 
-def phase_zkey_mpc(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit):
+def phase_zkey_mpc(dev, gen, errs, ptau, zbytes, r1cs, wit):
     """Groth16 phase 2 at domain 2^18 on phase 10's key (the
     200,000-constraint chain with circom's coefficients) and .ptau:
     contribute (ChaCha(PHASE2_SEED)), beacon; five points of sections 8 and 9
@@ -2507,7 +2126,7 @@ def phase_zkey_mpc(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit):
     x1, y1, _ = pcodec.g1_lem_from_bytes(fq, BinFile(z2, "zkey").read_section(8)[:n1 * sz], n1)
     scans = ceremony_scans(cv, vshapes["msm_scan"],
                            {"g1": (ftorch.to_tensor(x1, dev), ftorch.to_tensor(y1, dev))},
-                           gen, rate32, errs, path="phase 2 verify")
+                           gen, errs, path="phase 2 verify")
     check(not vshapes["digit_mm"], "verify_from_init launched K-mm")
     norms = norm_cases(dev, gen, vshapes["digit_mm_norm"], "phase 2 verify", errs)
     total = time.perf_counter() - t_phase
@@ -2581,7 +2200,7 @@ def cli_step(log_lines, words):
     return rc, out.getvalue(), list(log_lines.lines), ms, counts()
 
 
-def phase_cli(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit, inprocess_ms):
+def phase_cli(dev, gen, errs, ptau, zbytes, r1cs, wit, inprocess_ms):
     """The CLI and witness calculation at domain 2^18: the 200,000-constraint
     chain with circom's coefficients as circom would give it (.wasm, .r1cs,
     .sym, input.json from tests/_wasm_chain.py) and phase 10's .ptau and
@@ -2759,7 +2378,7 @@ def phase_cli(dev, gen, errs, rate32, ptau, zbytes, r1cs, wit, inprocess_ms):
     put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) else ftorch.to_tensor(a, dev)
     scans = ceremony_scans(cv, seen["msm_scan"], {"g1": (put(x1), put(y1)),
                                                   "g2": (put(x2), put(y2))},
-                           gen, rate32, errs, path="cli")
+                           gen, errs, path="cli")
     check(set(seen["msm_scan"]) <= HELD[("msm_scan", cv.fq.name)],
           f"a K-scan shape of the CLI steps was not compared: {sorted(seen['msm_scan'])}")
     check(not seen["digit_mm"], "a CLI step launched K-mm")
@@ -2847,34 +2466,6 @@ def mesh_prove(rec, mesh, dev, what, mod, read_key, extra, first=True, warm=0):
                                                                       ref["publics"]])
     rec["ms"][f"{what} single-card warm (earlier phase)"] = ref["warm_ms"]
     return zk
-
-
-def gloo_cuda_native(mesh, dev):
-    """Whether this torch's Gloo takes CUDA tensors itself, as the port's
-    collectives rely on (`distributed._comm_device` hands Gloo the tensor
-    where it is)."""
-    import torch.distributed as dist
-
-    from snarkjs_tpu_torch.parallel import distributed as pdist
-
-    g = mesh.get_group(pdist.AXIS)
-    n, r = pdist.mesh_size(mesh), pdist.mesh_rank(mesh)
-    out = {}
-    t = torch.arange(2 * n, device=dev, dtype=torch.int32) + 100 * r
-    try:
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=g)
-        out["all_gather"] = [int(p[0]) for p in parts] == [100 * j for j in range(n)]
-    except Exception as e:        # noqa: BLE001 (recorded, not hidden)
-        out["all_gather"] = repr(e)[:300]
-    try:
-        o = torch.empty_like(t)
-        dist.all_to_all_single(o, t, group=g)
-        out["all_to_all_single"] = o.tolist() == [100 * j + 2 * r + i for j in range(n)
-                                                  for i in range(2)]
-    except Exception as e:        # noqa: BLE001
-        out["all_to_all_single"] = repr(e)[:300]
-    return out
 
 
 def mesh_nccl_rank(rank, stash_dir):
@@ -2975,7 +2566,6 @@ def mesh_gloo_rank(rank, stash_dir):
     dev = pdist.device()
     rec = mesh_rec()
     rec["mesh"] = type(mesh).__name__
-    rec["gloo_cuda_native"] = gloo_cuda_native(mesh, dev)
     cv = hc.BN254
 
     # the four-step NTT, against the unsharded one on rank 0
@@ -3053,7 +2643,7 @@ def mesh_gloo_rank(rank, stash_dir):
     return rec
 
 
-def phase_mesh(dev, gen, errs, rate32, ptau):
+def phase_mesh(dev, gen, errs, ptau):
     """Phase 16: the multi-device path on the one card.  One rank over NCCL
     (the 2^20 Groth16 prove), then MESH_RANKS Gloo ranks all on cuda:0 in
     one spawn (NTTs, the three provers, contribute, prepare_phase2, the
@@ -3087,8 +2677,7 @@ def phase_mesh(dev, gen, errs, rate32, ptau):
                         devices=["cuda:0"] * MESH_RANKS, backend="gloo", timeout=MESH_JOIN_S)
     out["ms"][f"{MESH_RANKS} Gloo ranks (spawn to join)"] = (time.perf_counter() - t) * 1e3
     r0 = ranks[0]
-    log(f"  {MESH_RANKS} Gloo ranks on cuda:0: mesh {r0['mesh']}; Gloo with CUDA tensors "
-        f"itself: {json.dumps(r0['gloo_cuda_native'])}")
+    log(f"  {MESH_RANKS} Gloo ranks on cuda:0: mesh {r0['mesh']}")
     for k, v in r0["equal"].items():
         ok = all(v.values()) if isinstance(v, dict) else v
         check(ok, f"mesh step {k}: {v}")
@@ -3138,7 +2727,7 @@ def phase_mesh(dev, gen, errs, rate32, ptau):
     put = lambda a: tuple(put(c) for c in a) if isinstance(a, tuple) else ftorch.to_tensor(a, dev)
     scans = ceremony_scans(cv, seen["msm_scan"], {"g1": (put(x1), put(y1)),
                                                   "g2": (put(x2), put(y2))},
-                           gen, rate32, errs, path="mesh")
+                           gen, errs, path="mesh")
     norms = norm_cases(dev, gen, seen["digit_mm_norm"], "mesh", errs)
     check(not seen["digit_mm"], "a mesh step launched K-mm")
     check(set(seen["msm_scan"]) <= HELD[("msm_scan", cv.fq.name)]
@@ -3177,8 +2766,8 @@ def phase_mesh(dev, gen, errs, rate32, ptau):
                                              for s in r0["steps"]}}
     return {"ms": out["ms"], "total_s": total, "launches": launches,
             "nccl": {k: one[k] for k in ("mesh", "ms", "steps", "peak_gib")},
-            "gloo": [{k: r[k] for k in ("mesh", "ms", "steps", "peak_gib", "equal",
-                                        "gloo_cuda_native")} for r in ranks],
+            "gloo": [{k: r[k] for k in ("mesh", "ms", "steps", "peak_gib", "equal")}
+                     for r in ranks],
             "scans": scans, "norms": norms, "field_sizes": len(fseen)}
 
 
@@ -3203,7 +2792,7 @@ def verify_both(step, proto, P, vk, proofs):
 WARM_BLS = 3        # warm proves for a bls12-381 median
 
 
-def phase_plonk_cw8(dev, gen, errs, rate32, pk):
+def phase_plonk_cw8(dev, gen, errs, pk):
     """Phase 17: phase 7's bn128 PLONK key proved once more with msm_c=4,
     msm_cw=8, counted: the proof byte-equal to phase 7's, then K-scan held
     against its plain version at the cw = 8 shapes it gave."""
@@ -3224,11 +2813,11 @@ def phase_plonk_cw8(dev, gen, errs, rate32, pk):
           "no K-mm")
     log("  proof == phase 7's, byte for byte")
     x, y, _ = plonk._dev_key(zk, dev, zk.ptau[2].shape[0])["ptau"]
-    scans = ceremony_scans(cv, seen, {"g1": (x, y)}, gen, rate32, errs, path="plonk cw=8")
+    scans = ceremony_scans(cv, seen, {"g1": (x, y)}, gen, errs, path="plonk cw=8")
     return {"ms": ms, "launches": launches, "scans": scans}
 
 
-def phase_bls_fixtures(dev, gen, errs, rate32):
+def phase_bls_fixtures(dev, gen, errs):
     """Phase 18: the stored bls12-381 fixtures on the card.  The PLONK proof
     of tiny_plonk_bls12381 equal to the stored JAX proof; Groth16
     setup_from_ptau of the 3-constraint chain from tiny_p4_bls12381.ptau
@@ -3280,7 +2869,7 @@ def phase_bls_fixtures(dev, gen, errs, rate32):
     log(f"  launches {launches}; shapes: {shapes_json(shapes)}")
     check(launches["field_ops"] > 0 and launches["msm_scan"] > 0 and launches["digit_mm"] == 0,
           "the bls12-381 fixtures did not launch K-field and K-scan (or launched K-mm)")
-    held = kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, "bls12-381 fixtures",
+    held = kernel_holds(dev, gen, errs, cv, shapes, fseen, "bls12-381 fixtures",
                         pt=pt)
     return dict(held, steps_ms=steps, launches=launches)
 
@@ -3292,7 +2881,7 @@ def fields_held(dev, gen, errs, fseen, path):
         field_cases(dev, gen, errs, sorted(n for f, n in fseen if f == fname), path, fname)
 
 
-def kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, path, pt=None):
+def kernel_holds(dev, gen, errs, cv, shapes, fseen, path, pt=None):
     """K-field at every (field, elements) of `fseen`, K-scan (points from the
     .ptau `pt`, random scalars) and K-mm-norm on `cv`'s Fr at every shape of
     `shapes`, each against its plain version (but those held earlier)."""
@@ -3307,7 +2896,7 @@ def kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, path, pt=None):
             else ftorch.to_tensor(a, dev)
         scans = ceremony_scans(cv, shapes["msm_scan"], {"g1": (put(x1), put(y1)),
                                                         "g2": (put(x2), put(y2))},
-                               gen, rate32, errs, path=path)
+                               gen, errs, path=path)
     norms = norm_cases(dev, gen, shapes["digit_mm_norm"], path, errs, cv.fr.name)
     return {"scans": scans, "norms": norms, "field_sizes": len(fseen)}
 
@@ -3324,21 +2913,18 @@ def warm_median(prove, what):
     return out
 
 
-def phase_bls_groth16(dev, gen, errs, rate32, tables, bn_launches):
+def phase_bls_groth16(dev, gen, errs, tables, bn_launches):
     """Phase 19: phase 5's 2^20 Groth16 prove and its checks on bls12-381,
-    then its warm time, one prove under the profiler, K-field's times on
-    bls12-381 Fr and Fq at (NL, 2^20), and each kernel against its plain
-    version at every shape the counted prove gave it."""
+    then K-field's times on bls12-381 Fr and Fq at (NL, 2^20), and each
+    kernel against its plain version at every shape the counted prove gave
+    it."""
     cv = hc.BLS12_381
     t_phase = time.perf_counter()
     zkey, wit, prove_ms, launches, shapes, fseen = phase_full_prove(dev, tables, cv)
     log(f"  K-field launches {launches['field_ops']} (bn128's counted prove: "
         f"{bn_launches['field_ops']}); by op {launches['field_by_op']}")
     check(launches["msm_scan"] == 5, "bls12-381 Groth16: expected 5 K-scan launches")
-    prove = lambda: groth16.prove(zkey, wit, r=1, s=2, device=dev)
-    warm = warm_median(prove, "bls12-381 Groth16 2^20")
-    busy = profile_busy(prove, warm["median_ms"])
-    times = {name: field_times(dev, gen, name, rate32)
+    times = {name: field_times(dev, gen, name)
              for name in ("bls12_381_fr", "bls12_381_fq")}
     ctx = ftorch.get_ctx(cv.fr.name)
     a_pts, _, b2_pts, _, h_pts = groth16._dev_points(zkey, dev)
@@ -3346,7 +2932,7 @@ def phase_bls_groth16(dev, gen, errs, rate32, tables, bn_launches):
     p_odd = groth16.qap(ctx, zkey.domain_size, *qap_inputs(zkey, wit, dev))
     seen = shapes["msm_scan"]
     path = "bls12-381 groth16"
-    scans = [scan_case(cv, group, pts, scal, seen, path, rate32, errs)
+    scans = [scan_case(cv, group, pts, scal, seen, path, errs)
              for group, pts, scal in (("g1", a_pts, w), ("g1", h_pts, p_odd),
                                       ("g2", b2_pts, w))]
     check({tuple(e["shape"]) for e in scans} == set(seen),
@@ -3355,14 +2941,14 @@ def phase_bls_groth16(dev, gen, errs, rate32, tables, bn_launches):
     check(dict(shapes["digit_mm_norm"]) == {BIG: 12},
           f"the bls12-381 Groth16 prove's K-mm-norm shapes are not 12 x 1024^3: "
           f"{shapes['digit_mm_norm']}")
-    held = kernel_holds(dev, gen, errs, rate32, cv, shapes, fseen, path)
+    held = kernel_holds(dev, gen, errs, cv, shapes, fseen, path)
     total = time.perf_counter() - t_phase
     log(f"  bls12-381 Groth16 phase total {total:.1f} s")
-    return dict(held, scans=scans, ms=prove_ms, warm=warm, busy_ms=busy, launches=launches,
-                field_times=times, total_s=total)
+    return dict(held, scans=scans, ms=prove_ms, launches=launches, field_times=times,
+                total_s=total)
 
 
-def phase_bls_plonk(dev, gen, errs, rate32, tables, bn_launches):
+def phase_bls_plonk(dev, gen, errs, tables, bn_launches):
     """Phase 20: phase 7's 2^18 PLONK prove and its checks on bls12-381, its
     warm time, then each kernel against its plain version at every shape
     the counted prove gave it."""
@@ -3375,7 +2961,7 @@ def phase_bls_plonk(dev, gen, errs, rate32, tables, bn_launches):
                        "bls12-381 PLONK 2^18")
     path = "bls12-381 plonk"
     scan, norms = phase_plonk_shapes(dev, gen, pk["zk"], pk.pop("pol_a"), pk["shapes"], errs,
-                                     rate32, cv, path)
+                                     cv, path)
     fields_held(dev, gen, errs, pk["fields"], path)
     total = time.perf_counter() - t_phase
     log(f"  bls12-381 PLONK phase total {total:.1f} s")
@@ -3443,45 +3029,38 @@ def run():
     phase_plonk_fixture(dev)
     log("[2^20 Groth16 prove]")
     zkey, wit, prove_ms, launches, shapes, _ = phase_full_prove(dev, tables)
-    log("[where the time goes]")
-    _, paired_g = phase_breakdown(dev, zkey, wit, prove_ms)
     log("[Groth16 main-path shapes and times]")
-    rate32 = imad_per_s()
-    entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes, rate32)
+    entries = phase_main_shapes_and_times(dev, gen, zkey, wit, errs, shapes)
     del zkey, wit
     torch.cuda.empty_cache()
     log(f"[2^18 PLONK prove] ({time.perf_counter() - t0:.1f} s so far)")
     pk = phase_plonk_prove(dev, tables)
-    pzk, pwit, pb, plonk_ms, pl, pshapes = (pk[k] for k in ("zk", "wit", "b", "ms",
-                                                              "launches", "shapes"))
+    plonk_ms, pl, pshapes = pk["ms"], pk["launches"], pk["shapes"]
     log("[PLONK main-path shapes and times]")
-    pscan, pnorms = phase_plonk_shapes(dev, gen, pzk, pk.pop("pol_a"), pshapes, errs, rate32)
-    log("[where the PLONK prove's time goes]")
-    paired_p = phase_plonk_times(dev, pzk, pwit, pb, plonk_ms)
+    pscan, pnorms = phase_plonk_shapes(dev, gen, pk["zk"], pk.pop("pol_a"), pshapes, errs)
     torch.cuda.empty_cache()
-    log(f"[NTT path: K-mm] ({time.perf_counter() - t0:.1f} s so far)")
-    nl, nshapes, nmms = phase_ntt_path(dev, gen, errs)
-    torch.cuda.empty_cache()
+    log(f"[K-mm, held only] ({time.perf_counter() - t0:.1f} s so far)")
+    mms = [mm_case(dev, gen, "digit_mm", (512, 512, 512), 0, "held only", errs)]
     log(f"[NTT stage split] ({time.perf_counter() - t0:.1f} s so far)")
     split = phase_ntt_split(dev, gen, errs)
     log(f"[Groth16 and PLONK setup from a .ptau] ({time.perf_counter() - t0:.1f} s so far)")
-    setup = phase_setup(dev, gen, errs, rate32)
+    setup = phase_setup(dev, gen, errs)
     sl = setup["launches"]
     entries["msm_scan"].append(setup.pop("scan"))
     ptau = setup.pop("ptau")
     g16_zkey, (chain_r1cs, chain_wit) = setup.pop("zkey"), setup.pop("chain")
     torch.cuda.empty_cache()
     log(f"[FFLONK at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
-    ff = phase_fflonk(dev, gen, errs, rate32, ptau)
+    ff = phase_fflonk(dev, gen, errs, ptau)
     fl = ff["launches"]
     torch.cuda.empty_cache()
     log(f"[the powers-of-tau ceremony at power {SETUP_POWER}] "
         f"({time.perf_counter() - t0:.1f} s so far)")
-    cer = phase_ceremony(dev, gen, errs, rate32, ptau)
+    cer = phase_ceremony(dev, gen, errs, ptau)
     cl = cer["launches"]
     torch.cuda.empty_cache()
     log(f"[Groth16 phase 2 at domain 2^18] ({time.perf_counter() - t0:.1f} s so far)")
-    mpc = phase_zkey_mpc(dev, gen, errs, rate32, ptau, g16_zkey, chain_r1cs, chain_wit)
+    mpc = phase_zkey_mpc(dev, gen, errs, ptau, g16_zkey, chain_r1cs, chain_wit)
     ml = mpc["launches"]
     torch.cuda.empty_cache()
     log(f"[the CLI and witness calculation at domain 2^18] "
@@ -3490,31 +3069,31 @@ def run():
                  "groth16 prove": setup["steps_ms"]["groth16_prove"],
                  "plonk setup": setup["steps_ms"]["plonk_setup_from_ptau"],
                  "fflonk setup": ff["steps_ms"]["setup_from_ptau_2^16"]}
-    clip = phase_cli(dev, gen, errs, rate32, ptau, g16_zkey, chain_r1cs, chain_wit, inprocess)
+    clip = phase_cli(dev, gen, errs, ptau, g16_zkey, chain_r1cs, chain_wit, inprocess)
     del g16_zkey, chain_r1cs, chain_wit
     cli_l = clip["launches"]
     torch.cuda.empty_cache()
     log(f"[the multi-device path on one card] ({time.perf_counter() - t0:.1f} s so far)")
-    mesh = phase_mesh(dev, gen, errs, rate32, ptau)
+    mesh = phase_mesh(dev, gen, errs, ptau)
     del ptau
     log(f"[PLONK 2^18 with msm_c=4, msm_cw=8] ({time.perf_counter() - t0:.1f} s so far)")
-    cw8 = phase_plonk_cw8(dev, gen, errs, rate32, pk)
-    del pk, pzk, pwit
+    cw8 = phase_plonk_cw8(dev, gen, errs, pk)
+    del pk
     torch.cuda.empty_cache()
     log(f"[bls12-381: the stored fixtures and the ceremony chain] "
         f"({time.perf_counter() - t0:.1f} s so far)")
-    blsf = phase_bls_fixtures(dev, gen, errs, rate32)
+    blsf = phase_bls_fixtures(dev, gen, errs)
     log(f"[bls12-381: the 2^20 Groth16 prove] ({time.perf_counter() - t0:.1f} s so far)")
     bls_tables = point_tables(hc.BLS12_381)
-    blsg = phase_bls_groth16(dev, gen, errs, rate32, bls_tables, launches)
+    blsg = phase_bls_groth16(dev, gen, errs, bls_tables, launches)
     torch.cuda.empty_cache()
     log(f"[bls12-381: the 2^18 PLONK prove] ({time.perf_counter() - t0:.1f} s so far)")
-    blsp = phase_bls_plonk(dev, gen, errs, rate32, bls_tables, pl)
+    blsp = phase_bls_plonk(dev, gen, errs, bls_tables, pl)
     torch.cuda.empty_cache()
     bls = {"fixtures": blsf, "groth16": blsg, "plonk": blsp}
 
-    # `launches` is a kernel's count on a driven path: the PLONK prove, but
-    # for K-mm, which no prove runs (the NTT path's); `launches_fflonk` the
+    # `launches` is a kernel's count on a driven path: the PLONK prove's (0
+    # for K-mm, which no route launches: held only); `launches_fflonk` the
     # FFLONK prove's, `launches_fflonk_setup` its setups', `launches_ceremony`
     # phase 13's (contribute, prepare_phase2, verify), `launches_phase2` phase
     # 14's (contribute, verify_from_init, export and import of the MPC
@@ -3524,8 +3103,8 @@ def run():
     # `bound_ms` belong to `shape`, the shape that path gave the kernel most
     # often.  `shapes` lists every shape the paths gave the kernel (K-field
     # has too many), each with its own launches, error, times and bound.
-    mm_big = dict(entries["digit_mm"], path="ntt fused=False", shape=list(BIG),
-                  launches=nshapes["digit_mm"][BIG], max_abs_err=errs["digit_mm"])
+    mm_big = dict(entries["digit_mm"], path="held only", shape=list(BIG), launches=0,
+                  max_abs_err=errs["digit_mm"])
     norm_big = dict(entries["digit_mm_norm"], path="plonk", shape=list(BIG),
                     launches=pshapes["digit_mm_norm"][BIG],
                     max_abs_err=errs["digit_mm_norm"])
@@ -3543,7 +3122,7 @@ def run():
         ("msm_reduce", "snarkjs_tpu_torch/csrc/msm_reduce.cu",
          "snarkjs_tpu/curves/msm_tpu.py:531", reduces[0], reduces),
         ("digit_mm", "snarkjs_tpu_torch/csrc/digit_mm.cu",
-         "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + nmms),
+         "snarkjs_tpu/ntt/ntt_mxu.py:320", mm_big, [mm_big] + mms),
         ("digit_mm_norm", "snarkjs_tpu_torch/csrc/digit_mm_norm.cu",
          "snarkjs_tpu/ntt/ntt_mxu.py:457", norm_big,
          [norm_big] + pnorms + split["norms"] + ff["norms"] + cer["norms"] + mpc["norms"]
@@ -3553,9 +3132,8 @@ def run():
     for kname, src, replaces, first, every in rows:
         k = dict({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                   "library_ms": None}, **first)
-        k.update(launches=nl[kname] if kname == "digit_mm" else pl[kname],
-                 max_abs_err=errs[kname], launches_groth16=launches[kname],
-                 launches_plonk=pl[kname], launches_ntt_path=nl[kname],
+        k.update(launches=pl[kname], max_abs_err=errs[kname],
+                 launches_groth16=launches[kname], launches_plonk=pl[kname],
                  launches_setup=sum(c[kname] for c in sl.values()),
                  launches_setup_by_step={step: c[kname] for step, c in sl.items()},
                  launches_fflonk=fl["prove"][kname],
@@ -3570,7 +3148,8 @@ def run():
                  launches_plonk_cw8=cw8["launches"][kname],
                  launches_bls12_381={ph: v["launches"][kname] for ph, v in bls.items()},
                  shapes=every)
-        check(k["launches"] > 0, f"{kname} was launched on no driven path")
+        check(k["launches"] > 0 or kname == "digit_mm",
+              f"{kname} was launched on no driven path")
         check(kname == "digit_mm" or any(
             sum(v) for steps in k["launches_mesh"].values() for v in steps.values()),
             f"{kname} was launched on no step of the mesh path")
@@ -3592,8 +3171,8 @@ def run():
     kernels[0]["launches_by_op_bls12_381"] = {ph: v["launches"]["field_by_op"]
                                               for ph, v in bls.items()}
     kernels[0]["bls12_381"] = blsg["field_times"]
-    log(f"prove_2^20_warm_ms: {prove_ms}  paired: {json.dumps(paired_g)}")
-    log(f"plonk_prove_2^18_warm_ms: {plonk_ms}  paired: {json.dumps(paired_p)}")
+    log(f"prove_2^20_warm_ms: {prove_ms}")
+    log(f"plonk_prove_2^18_warm_ms: {plonk_ms}")
     log(f"NTT split: {json.dumps({k: v for k, v in split.items() if k != 'norms'})}")
     log(f"setup phase: {json.dumps(setup)}")
     log(f"fflonk phase: {json.dumps({k: v for k, v in ff.items() if k not in ('scans', 'norms')})}")

@@ -14,17 +14,15 @@ sum w*(xR) = (sum w*x)*R.
 normalisation as the kernel's epilogue (kernel K-mm-norm,
 csrc/digit_mm_norm.cu), so the columns never reach device memory as int32.
 Its plain version is `_normalize_cols(fp, digit_mm_plain(W8, D8))`; the
-counter `k_mm_norm` of `trace` counts its launches, and `k_mm_norm_narrow`
-those whose r is under one output tile (`NORM_TILE_ROWS`).  It is the one
-route of every stage (`_mm_stage`).
+counter `k_mm_norm` of `trace` counts its launches.  It is the one route of
+every stage (`_mm_stage`).
 
-`digit_mm` replaces ntt_mxu._pallas_mm: the columns alone (kernel K-mm,
-csrc/digit_mm.cu).  Its plain version is the same sum as exact matmuls:
-int64 on the CPU, float64 on the card (every column is below 2^31 < 2^53,
-and torch has no general integer GEMM on CUDA).  The counter `k_mm` counts
-K-mm launches.  `ntt(ctx, a, fused=False)` and `intt(ctx, a, fused=False)`
-run the stages as K-mm followed by `_normalize_cols` in PyTorch; the
-provers never ask for that.
+`digit_mm` is the hand-written counterpart of ntt_mxu._pallas_mm: the
+columns alone (kernel K-mm, csrc/digit_mm.cu).  No route of the program
+calls it; it is kept and held against its plain version, the same sum as
+exact matmuls: int64 on the CPU, float64 on the card (every column is below
+2^31 < 2^53, and torch has no general integer GEMM on CUDA).  The counter
+`k_mm` counts K-mm launches.
 
 Both kernels share one tensor-core main loop (csrc/digit_mma.cuh), which
 wants the summed index y contiguous in both operands: W8 (nd, r, q) has it,
@@ -394,8 +392,6 @@ def digit_mm_norm(fp: FieldParams, W8, D8, y_major: bool = False):
             _build.stream_ptr(D8.device))
         _build.check(err, "K-mm-norm")
         trace.add("k_mm_norm")
-        if r < NORM_TILE_ROWS:
-            trace.add("k_mm_norm_narrow")
     return out
 
 
@@ -406,15 +402,13 @@ def _w_matrix_on(field_name: str, k: int, inverse: bool, device: str):
     return upload(torch.from_numpy(_w_matrix_digits(field_name, k, inverse)), device)
 
 
-def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, aT, fused: bool = True):
+def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, aT):
     """Direct DFT matmul along the last axis: aT (nl, m, r) -> (nl, r, m),
-    through K-mm-norm; with fused=False through K-mm and `_normalize_cols`."""
+    through K-mm-norm."""
     fp = ctx.fp
     W8 = _w_matrix_on(fp.name, k, inverse, str(aT.device))
-    DT = _to_digits(fp, aT)           # (nd, m, q): y innermost, as the kernels read
-    if fused:
-        return digit_mm_norm(fp, W8, DT, y_major=True)
-    return _normalize_cols(fp, digit_mm(W8, DT, y_major=True))
+    DT = _to_digits(fp, aT)           # (nd, m, q): y innermost, as the kernel reads
+    return digit_mm_norm(fp, W8, DT, y_major=True)
 
 
 def _split(k: int) -> int:
@@ -429,7 +423,7 @@ def _split(k: int) -> int:
     return -(-k // -(-k // MAX_LOG_R))
 
 
-def _ntt_last(ctx: FieldCtx, aT, inverse: bool, fused: bool = True):
+def _ntt_last(ctx: FieldCtx, aT, inverse: bool):
     """NTT along the last axis of aT (nl, bt, sz); returns (nl, sz, bt): a
     matmul stage takes its data with the summed axis innermost and leaves the
     transformed axis outermost, which is what the next stage wants."""
@@ -439,11 +433,11 @@ def _ntt_last(ctx: FieldCtx, aT, inverse: bool, fused: bool = True):
         return aT.reshape(nl, sz, bt)
     k1 = _split(k)
     if k1 == k:
-        return _mm_stage(ctx, k, inverse, aT, fused)
+        return _mm_stage(ctx, k, inverse, aT)
     n1, n2 = 1 << k1, 1 << (k - k1)
     # stage A: NTT over j2 for each (j1, bt); index j = j2 * n1 + j1
     y = _ntt_last(ctx, aT.reshape(nl, bt, n2, n1).permute(0, 3, 1, 2).reshape(
-        nl, n1 * bt, n2), inverse, fused)
+        nl, n1 * bt, n2), inverse)
     y = y.reshape(nl, n2, n1, bt)
     # twiddle w^(j1*k2), built on device from two factored ladders
     s, A, B = _twiddle_parts(ctx.fp.name, k, k1, inverse)
@@ -453,24 +447,24 @@ def _ntt_last(ctx: FieldCtx, aT, inverse: bool, fused: bool = True):
         ftorch.to_tensor(B, dev).reshape(nl, n2 // s, 1, n1)).reshape(nl, n2, n1)
     y = ftorch.mont_mul(ctx, y, tw[:, :, :, None])
     # stage B: NTT over j1 for each (k2, bt): y already has j1 innermost
-    z = _ntt_last(ctx, y.permute(0, 1, 3, 2).reshape(nl, n2 * bt, n1), inverse, fused)
+    z = _ntt_last(ctx, y.permute(0, 1, 3, 2).reshape(nl, n2 * bt, n1), inverse)
     return z.reshape(nl, n1 * n2, bt)
 
 
-def ntt(ctx: FieldCtx, a, fused: bool = True):
+def ntt(ctx: FieldCtx, a):
     """Forward NTT, natural order, Montgomery form (ntt.ntt's contract)."""
     n = a.shape[-1]
     k = n.bit_length() - 1
     assert 1 << k == n and k <= ctx.fp.s
     if k == 0:
         return a
-    return _ntt_last(ctx, a.reshape(ctx.nl, 1, n), False, fused).reshape(ctx.nl, n)
+    return _ntt_last(ctx, a.reshape(ctx.nl, 1, n), False).reshape(ctx.nl, n)
 
 
-def intt(ctx: FieldCtx, a, fused: bool = True):
+def intt(ctx: FieldCtx, a):
     n = a.shape[-1]
     k = n.bit_length() - 1
     assert 1 << k == n
     if k == 0:
         return a
-    return _ntt_last(ctx, a.reshape(ctx.nl, 1, n), True, fused).reshape(ctx.nl, n)
+    return _ntt_last(ctx, a.reshape(ctx.nl, 1, n), True).reshape(ctx.nl, n)

@@ -34,8 +34,8 @@ from dataclasses import dataclass, field
 import torch
 
 KEEP = 8
-COUNTERS = ("k_scan", "k_reduce", "k_mm", "k_mm_norm", "k_mm_norm_narrow", "h2d_bytes",
-            "h2d_copies", "d2h_bytes", "d2h_copies", "table_builds", "table_build_ns")
+COUNTERS = ("k_scan", "k_reduce", "k_mm", "k_mm_norm", "h2d_bytes", "h2d_copies",
+            "d2h_bytes", "d2h_copies", "table_builds", "table_build_ns")
 
 _COUNTS = dict.fromkeys(COUNTERS, 0)
 _RECENT = collections.deque(maxlen=KEEP)

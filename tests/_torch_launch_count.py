@@ -19,9 +19,7 @@ three products and one add.
 """
 
 import collections
-import importlib.util
 import json
-import os
 import sys
 
 import numpy as np
@@ -35,8 +33,8 @@ from snarkjs_tpu_torch.formats import points as pcodec
 from snarkjs_tpu_torch.formats.zkey import read_fflonk_zkey
 from snarkjs_tpu_torch.ntt import ntt as nttmod
 from snarkjs_tpu_torch.protocols import fflonk, fflonk_setup, plonk_setup
+from tests import _torch_inputs as inputs
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COUNTS = collections.Counter()
 ON = [False]
 
@@ -66,14 +64,6 @@ def _replaced(fn, launches):
     return g
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
-
-
 def msm_counts(points=9000) -> dict:
     """One G1 MSM at cw = 16 with the card's lane count."""
     lanes = msm_gpu._lanes
@@ -81,7 +71,7 @@ def msm_counts(points=9000) -> dict:
     msm_gpu.scan = _replaced(msm_gpu.scan, {"msm_scan": 1})
     msm_gpu.reduce = _replaced(msm_gpu.reduce, {"msm_reduce": 4})
     cv = hc.BN254
-    (gx, gy), _ = _chip_smoke().point_tables(cv, 64, 1)
+    (gx, gy), _ = inputs.point_tables(cv, 64, 1)
     tiled = lambda t: ftorch.to_tensor(np.tile(t, (1, -(-points // 64)))[:, :points], "cpu")
     sc = ftorch.to_tensor(ftorch.np_from_ints(cv.fr, range(1, points + 1)), "cpu")
     COUNTS.clear()
@@ -98,13 +88,13 @@ def prove_counts(n_constraints: int) -> dict:
     nttmod.ntt = _replaced(nttmod.ntt, {"mont_mul": 2, "digit_mm_norm": 2})
     nttmod.intt = _replaced(nttmod.intt, {"mont_mul": 2, "digit_mm_norm": 2})
     msm_mod.MSMContext.run = _replaced(msm_mod.MSMContext.run, {"msm": 1})
-    cs = _chip_smoke()
     cv = hc.BN254
-    r1cs, wit = cs.plonk_circuit(cv.fr, n_constraints)
+    r1cs, wit = inputs.plonk_circuit(cv.fr, n_constraints)
     lowered = plonk_setup.process_constraints(cv.fr, r1cs)
     m = 9 * fflonk_setup._domain(len(lowered[0])) + 18
-    (gx, gy), _ = cs.point_tables(cv, 64, 1)
-    srs = pcodec.g1_lem_to_bytes(cv.fq, cs.tiled(gx, m), cs.tiled(gy, m), np.zeros(m, bool))
+    (gx, gy), _ = inputs.point_tables(cv, 64, 1)
+    srs = pcodec.g1_lem_to_bytes(cv.fq, inputs.tiled(gx, m), inputs.tiled(gy, m),
+                                 np.zeros(m, bool))
     zk = read_fflonk_zkey(fflonk_setup._write_fflonk_zkey(
         cv, r1cs, lowered, srs, cv.g2, lambda msg: None, torch.device("cpu")))
     COUNTS.clear()

@@ -29,6 +29,7 @@ from snarkjs_tpu_torch.formats.binfile import BinFile
 from snarkjs_tpu_torch.protocols import groth16_setup as tgs
 from snarkjs_tpu_torch.protocols import plonk as tp
 from snarkjs_tpu_torch.protocols import plonk_setup as tps
+from tests import _torch_inputs as inputs
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 from tests.test_torch_groth16_setup import ALPHA, BETA, TAU, jax_ptau_bytes
 
@@ -142,13 +143,12 @@ def test_bls12_381_fixtures_regenerate():
 
 def test_chip_smoke_chain_equals_tiny_circuit():
     """The squaring chain that chip_smoke.py and the card-only cases build
-    without the JAX package (`chip_smoke.plonk_circuit`) equals
+    without the JAX package (`tests/_torch_inputs.plonk_circuit`) equals
     `_tiny_circuit(3, "bls12-381")`, r1cs and witness."""
-    import chip_smoke
     from snarkjs_tpu_torch.curves import host_curve as thc
 
     _, r1cs, wit = _graft()._tiny_circuit(3, "bls12-381")
-    got, got_wit = chip_smoke.plonk_circuit(thc.BLS12_381.fr, 3)
+    got, got_wit = inputs.plonk_circuit(thc.BLS12_381.fr, 3)
     for k in r1cs.__dataclass_fields__:
         a, b = getattr(got, k), getattr(r1cs, k)
         assert (np.array_equal(a, b) and a.dtype == b.dtype

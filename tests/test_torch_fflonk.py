@@ -41,6 +41,7 @@ from snarkjs_tpu_torch.formats import zkey as tzkey
 from snarkjs_tpu_torch.protocols import fflonk as tff
 from snarkjs_tpu_torch.protocols import fflonk_setup as tfs
 from snarkjs_tpu_torch.protocols import plonk_setup as tps
+from tests import _torch_inputs as inputs
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,29 +106,20 @@ def _torch_r1cs(r1cs):
 
 def ptau7_bytes() -> bytes:
     """The prepared power-7 .ptau that one contribution of (TAU, ALPHA, BETA)
-    and preparePhase2 leave, written by the port: chip_smoke.py's scalars,
+    and preparePhase2 leave, written by the port: tests/_torch_inputs.py's scalars,
     their points by host scalar multiplication (at most 512 a call, so the
     port's host route), `PtauFile.tobytes`."""
     from snarkjs_tpu_torch.protocols import groth16_setup as tgs
     from snarkjs_tpu_torch.formats import points as tpc
 
-    cs = _chip_smoke()
     cv = thc.get_curve("bn128")
     pt = tptau.PtauFile(cv, 7, 7)
-    for sid, (ks, g2) in cs.ptau_scalars(cv, 7, TAU, ALPHA, BETA).items():
+    for sid, (ks, g2) in inputs.ptau_scalars(cv, 7, TAU, ALPHA, BETA).items():
         enc = tpc.g2_lem_to_bytes if g2 else tpc.g1_lem_to_bytes
         pt.sections[sid] = b"".join(
             enc(cv.fq, *tgs._points_from_scalars(cv, ks[i:i + 512], g2, device="cpu"))
             for i in range(0, len(ks), 512))
     return pt.tobytes()
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
 
 
 def fixture_files() -> dict:

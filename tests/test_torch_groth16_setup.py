@@ -32,6 +32,7 @@ from snarkjs_tpu_torch.formats import ptau as tptau
 from snarkjs_tpu_torch.formats import r1cs as tr1cs
 from snarkjs_tpu_torch.formats.binfile import BinFile
 from snarkjs_tpu_torch.protocols import groth16_setup as tgs
+from tests import _torch_inputs as inputs
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -243,10 +244,6 @@ def test_chip_smoke_ptau_builder_matches_prepare_phase2():
     """chip_smoke.py builds its power-19 .ptau from the secrets' scalars (its
     section-12 top block from the tau points and one zero point); at power 4
     it must give the stored file, which prepare_phase2 made."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
     cv = thc.get_curve("bn128")
-    pt = cs.build_ptau(cv, POWER, cs.ptau_scalars(cv, POWER, TAU, ALPHA, BETA), "cpu")
+    pt = inputs.build_ptau(cv, POWER, inputs.ptau_scalars(cv, POWER, TAU, ALPHA, BETA), "cpu")
     assert pt.tobytes() == _fixture(PTAU)

@@ -1,6 +1,6 @@
 """K-scan's plain version against the JAX package's own formula, word for
 word; the card rule of the scan width (`msm_gpu._lanes`); the count of
-field products in K-scan's bound (`chip_smoke.madd_products`).
+field products in K-scan's bound (`tests/_torch_inputs.madd_products`).
 
 The JAX side is the sequential formula of `msm_tpu._scan_kernel` run step by
 step outside Pallas: `rcb.rcb_madd` over `msm_tpu._DevField` / `_DevField2`
@@ -14,13 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from snarkjs_tpu.curves import host_curve as hc
 from snarkjs_tpu.curves import msm_tpu, rcb
 from snarkjs_tpu.fields import fjnp
 from snarkjs_tpu_torch.curves import host_curve as thc
 from snarkjs_tpu_torch.curves import msm_gpu
 from snarkjs_tpu_torch.curves import rcb as trcb
+from tests import _torch_inputs as inputs
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
 C, RL, NW = 3, 128, 2
@@ -150,11 +150,11 @@ class _CountingField:
 @pytest.mark.parametrize("formula", [rcb, trcb], ids=["jax", "torch"])
 @pytest.mark.parametrize("ext", [1, 2])
 def test_kscan_bound_counts_every_product_of_the_mixed_add(formula, ext):
-    """`chip_smoke.madd_products`, the base-field products of one K-scan step
+    """`madd_products`, the base-field products of one K-scan step
     in its bound, against the products the mixed-add formula makes: on G1
     the two by 3b are an add ladder, on G2 every Fq2 product is three."""
     f = _CountingField()
     formula.rcb_madd(f, ("v", "v", "v"), "v", "v", "b3")
     assert (f.other, f.by_b3) == (11, 2)
     want = f.other if ext == 1 else 3 * (f.other + f.by_b3)
-    assert chip_smoke.madd_products(ext) == want
+    assert inputs.madd_products(ext) == want

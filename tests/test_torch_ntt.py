@@ -75,7 +75,8 @@ def _stages(k):
 def test_split_is_fewest_balanced_stages(k):
     """ceil(k / MAX_LOG_R) stages of at most 2^MAX_LOG_R, log radices within
     one of each other, summing to k; one stage up to 2^10, 2^20 as 10 + 10
-    (the 2^20 NTTs keep their shapes), no stage under 2^6 at 2^22."""
+    (the 2^20 NTTs keep their shapes), no stage under 2^6 at 2^22; from
+    2^12 on no stage has fewer rows than one K-mm-norm tile."""
     got = _stages(k)
     assert sum(got) == k and max(got) <= ntt_mm.MAX_LOG_R
     assert len(got) == -(-k // ntt_mm.MAX_LOG_R)
@@ -86,11 +87,13 @@ def test_split_is_fewest_balanced_stages(k):
         assert got == [10, 10]
     if k == 22:
         assert min(got) >= 6
+    if k >= 12:
+        assert min(got) >= ntt_mm.NORM_TILE_ROWS.bit_length() - 1
 
 
 def test_norm_tile_rows_is_the_kernels():
-    """`k_mm_norm_narrow` counts launches of fewer rows than a K-mm-norm
-    tile: NORM_TILE_ROWS is the TK of the kernels' main loop."""
+    """`_split` gives no stage of a 2^12 or larger NTT fewer rows than one
+    K-mm-norm tile: NORM_TILE_ROWS is the TK of the kernels' main loop."""
     src = open(os.path.join(os.path.dirname(ntt_mm.__file__), "..", "csrc",
                             "digit_mma.cuh")).read()
     assert int(re.search(r"constexpr int TK = (\d+);", src).group(1)) == ntt_mm.NORM_TILE_ROWS
@@ -106,9 +109,9 @@ def test_balanced_stages_match_butterflies(fn, k, monkeypatch):
     monkeypatch.setattr(ntt_mm, "MAX_LOG_R", 3)
     radices, stage = [], ntt_mm._mm_stage
 
-    def rec(ctx, kk, inverse, aT, fused=True):
+    def rec(ctx, kk, inverse, aT):
         radices.append(kk)
-        return stage(ctx, kk, inverse, aT, fused)
+        return stage(ctx, kk, inverse, aT)
 
     monkeypatch.setattr(ntt_mm, "_mm_stage", rec)
     A = _data(k, 12)
@@ -127,8 +130,11 @@ def _digit_inputs(r, q, m, seed=3):
     return fp, W8, D8
 
 
-@pytest.mark.parametrize("r,q,m", [(8, 8, 16), (32, 32, 4)])
+@pytest.mark.parametrize("r,q,m", [(8, 8, 16), (32, 32, 4), (32, 32, 64),
+                                   (64, 64, 32)])
 def test_digit_mm_plain_matches_einsum(r, q, m):
+    """K-mm's wrapper on CPU tensors against the JAX einsum; the last two
+    shapes are a 2^11 NTT's two stages (5 + 6)."""
     fp, W8, D8 = _digit_inputs(r, q, m)
     want = np.asarray(ntt_mxu._einsum_mm(jnp.asarray(W8), jnp.asarray(D8)))
     got = ntt_mm.digit_mm(torch.tensor(W8), torch.tensor(D8))
@@ -171,10 +177,12 @@ def test_digit_mm_norm_plain_matches_pallas_interpret():
 
 
 @pytest.mark.parametrize("field", [FR, "bls12_381_fr"])
-@pytest.mark.parametrize("r,q,m", [(4, 4, 24), (32, 32, 4), (5, 10, 6)])
+@pytest.mark.parametrize("r,q,m", [(4, 4, 24), (32, 32, 4), (5, 10, 6),
+                                   (64, 64, 1)])
 def test_digit_mm_norm_matches_normalized_einsum(field, r, q, m):
-    """Edge shapes (r or m = 4, and sizes that are no multiple of 4), both Fr
-    fields: the wrapper on CPU tensors against _normalize_cols(_einsum_mm)."""
+    """Edge shapes (r or m = 4, sizes that are no multiple of 4, and a 2^6
+    NTT's one stage with m = 1), both Fr fields: the wrapper on CPU tensors
+    against _normalize_cols(_einsum_mm)."""
     fpj = fjnp.get_ctx(field).fp
     rng = np.random.default_rng(r * 100 + m)
     W8 = rng.integers(-128, 128, (fpj.n8 + 1, r, q)).astype(np.int8)
@@ -202,31 +210,6 @@ def test_norm_consts_layout():
         p = sum(int(w) << (16 * i) for i, w in enumerate(words[:fp.nl + 1]))
         assert p == fp.p
         assert int(words[-1]) == (1 << (32 + fp.n8 * 8 - 6)) // fp.p
-
-
-@pytest.mark.parametrize("fn,k", [("ntt", 6), ("intt", 6), ("intt", 11)])
-def test_fused_route_equals_unfused(fn, k, monkeypatch):
-    """The default route is K-mm-norm's; `fused=False` takes K-mm and the
-    PyTorch `_normalize_cols`, and gives the same limbs."""
-    A = ftorch.to_tensor(_data(k, 7), "cpu")
-    ctx = ftorch.get_ctx(FR)
-    calls = {"norm": 0, "mm": 0}
-    real_norm, real_mm = ntt_mm.digit_mm_norm, ntt_mm.digit_mm
-
-    def count(name, real):
-        def wrapped(*a, **kw):
-            calls[name] += 1
-            return real(*a, **kw)
-        return wrapped
-
-    monkeypatch.setattr(ntt_mm, "digit_mm_norm", count("norm", real_norm))
-    monkeypatch.setattr(ntt_mm, "digit_mm", count("mm", real_mm))
-    want = getattr(ntt_mm, fn)(ctx, A)
-    assert calls["norm"] and not calls["mm"], "the default is not the fused route"
-    calls["norm"] = 0
-    got = getattr(ntt_mm, fn)(ctx, A, fused=False)
-    assert calls["mm"] and not calls["norm"], "fused=False did not take K-mm"
-    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("q,m", [(8, 16), (5, 3)])

@@ -229,26 +229,6 @@ def test_proof_json_equal_jax(jax_side, torch_proof):
         (jax_side["proof"], jax_side["publics"]))
 
 
-def test_proof_equal_with_fused_ntt_route(jax_side, torch_proof, monkeypatch):
-    """`torch_proof` went the default route (K-mm-norm's); the same prove with
-    every stage sent through K-mm and `_normalize_cols` gives the same proof."""
-    from snarkjs_tpu_torch.ntt import ntt_mm
-
-    stage = ntt_mm._mm_stage
-    routes = []
-
-    def unfused(ctx, k, inverse, a, fused=True):
-        routes.append(fused)
-        return stage(ctx, k, inverse, a, fused=False)
-
-    monkeypatch.setattr(ntt_mm, "_mm_stage", unfused)
-    zk = tzkey.read_plonk_zkey(jax_side["zbytes"])
-    got = tp.prove(zk, convert.witness_from_numpy(jax_side["wit"]), b=B,
-                   device="cpu")
-    assert json.dumps(got) == json.dumps(torch_proof)
-    assert all(routes), "the prover asked for a route of its own"
-
-
 def test_each_verifies_the_other_and_rejects_tampering(jax_side, torch_proof):
     proof, publics = torch_proof
     vk_t = tp.export_verification_key(tzkey.read_plonk_zkey(jax_side["zbytes"]))

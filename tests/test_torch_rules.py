@@ -3,6 +3,7 @@ default.  Also the kernel tests that need an NVIDIA card (marker `cuda`):
 they skip here and run on the card with `python -m pytest --noconftest
 -m cuda tests/test_torch_rules.py` (this file imports no jax)."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -85,10 +86,13 @@ def test_port_imports_no_jax_and_no_snarkjs_tpu():
     assert _bad_modules(imports) == "BAD []"
 
 
-def test_chip_smoke_imports_no_jax_and_no_snarkjs_tpu():
-    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    lines = [ln for ln in src.splitlines()
-             if ln.startswith(("import ", "from ")) and "__future__" not in ln]
+@pytest.mark.parametrize("script", ["chip_smoke.py", os.path.join("tests", "_torch_inputs.py")])
+def test_chip_smoke_imports_no_jax_and_no_snarkjs_tpu(script):
+    """The card script and the input module it shares with the tests run on a
+    card without jax: their imports pull in neither package."""
+    tree = ast.parse(open(os.path.join(ROOT, script)).read())
+    lines = [ast.unparse(n) for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))
+             and getattr(n, "module", None) != "__future__"]
     assert any("snarkjs_tpu_torch" in ln for ln in lines)
     assert _bad_modules("\n".join(lines)) == "BAD []"
 
@@ -534,8 +538,8 @@ def test_bls12_381_setup_from_ptau_on_card_equals_stored_jax(card):
     """Groth16 `setup_from_ptau` of the 3-constraint chain from the stored
     bls12-381 power-4 .ptau on the card (segmented MSMs through K-field,
     the csHash) gives the JAX package's key byte for byte."""
-    import chip_smoke
     from snarkjs_tpu_torch.curves import host_curve as thc
+    from tests import _torch_inputs as inputs
     from snarkjs_tpu_torch.formats import ptau as tptau
 
     fx = os.path.join(ROOT, "snarkjs_tpu_torch", "fixtures")
@@ -544,7 +548,7 @@ def test_bls12_381_setup_from_ptau_on_card_equals_stored_jax(card):
     with open(os.path.join(fx, "tiny3_bls12381_from_ptau.zkey"), "rb") as f:
         want = f.read()
     trace.reset_counters()
-    r1cs, _ = chip_smoke.plonk_circuit(thc.BLS12_381.fr, 3)   # _tiny_circuit(3)'s chain
+    r1cs, _ = inputs.plonk_circuit(thc.BLS12_381.fr, 3)   # _tiny_circuit(3)'s chain
     got = g16setup.setup_from_ptau(r1cs, pt, device=card)
     assert trace.counters()["k_field"] > 0
     assert got == want

@@ -24,6 +24,7 @@ from snarkjs_tpu_torch.formats import r1cs as tr1cs
 from snarkjs_tpu_torch.wasm import interp as tinterp
 from snarkjs_tpu_torch.wasm import native as tnative
 from snarkjs_tpu_torch.wasm import witness_calculator as twc
+from tests import _torch_inputs as inputs
 from tests import _wasm_chain
 from tests._torch_cpu import one_torch_thread  # noqa: F401  (autouse fixture)
 
@@ -37,14 +38,6 @@ def _graft():
     g = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(g)
     return g
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    m = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(m)
-    return m
 
 
 def _four_vms(monkeypatch, wasm, run):
@@ -133,9 +126,8 @@ def test_generated_r1cs_is_the_chip_smoke_chain(ones):
     """Both packages read the generator's .r1cs as chip_smoke's chain at
     nc = 40 (circom's coefficients, or every coefficient 1), its labels the
     wires, its .sym one line a signal wire."""
-    cs = _chip_smoke()
     fr = thc.BN254.fr
-    want, wit = (cs.plonk_circuit if ones else cs.circom_chain)(fr, 40)
+    want, wit = (inputs.plonk_circuit if ones else inputs.circom_chain)(fr, 40)
     data = _wasm_chain.chain_r1cs(fr.p, 40, ones)
     for read in (jr1cs.read_r1cs, tr1cs.read_r1cs):
         got = read(data)
