@@ -18,10 +18,15 @@ def resolve(device=None) -> torch.device:
 
 
 def upload(t: torch.Tensor, device) -> torch.Tensor:
-    """t on `device`; a copy from the host to a CUDA device is counted
-    (`h2d_bytes`, `h2d_copies`)."""
-    out = t.to(device)
-    if out.device.type == "cuda" and t.device.type == "cpu":
+    """t on `device`.  A copy from the host to a CUDA device is counted in
+    `h2d_bytes`; from page-locked memory it is enqueued on the current
+    stream without waiting (`h2d_async_copies`), else it blocks
+    (`h2d_copies`).  A pinned source must not be written while its copy may
+    be in flight."""
+    h2d = torch.device(device).type == "cuda" and t.device.type == "cpu"
+    pinned = h2d and t.is_pinned()
+    out = t.to(device, non_blocking=pinned)
+    if h2d:
         trace.add("h2d_bytes", t.nbytes)
-        trace.add("h2d_copies")
+        trace.add("h2d_async_copies" if pinned else "h2d_copies")
     return out

@@ -8,7 +8,9 @@ digit-pair products accumulated into 2*nd - 1 int32 columns, then normalized
 back to canonical 16-bit limbs (`_normalize_cols`: the carry pass
 `_carry_digits`, then `_reduce_digits`: high-digit fold, Barrett).  The DFT
 matrices hold plain residues; data stays in Montgomery form because
-sum w*(xR) = (sum w*x)*R.
+sum w*(xR) = (sum w*x)*R.  What a stage reads besides its data, the DFT
+matrix and the twiddle parts, goes to a device once (`_w_matrix_on`,
+`_twiddle_parts_on`).
 
 `digit_mm_norm` replaces ntt_mxu._pallas_mm_norm: the product with the
 normalisation as the kernel's epilogue (kernel K-mm-norm,
@@ -104,7 +106,6 @@ def _w_matrix_digits(field_name: str, k: int, inverse: bool) -> np.ndarray:
     return np.ascontiguousarray(digs[idx].transpose(2, 0, 1))
 
 
-@trace.table
 def _twiddle_parts(field_name: str, k: int, k1: int, inverse: bool):
     """Factored twiddles T[k2, j1] = w^(+-j1*k2) = A[k2 % s, j1] * B[k2 // s, j1]
     (Montgomery limbs), so the device builds T with one multiply."""
@@ -402,6 +403,13 @@ def _w_matrix_on(field_name: str, k: int, inverse: bool, device: str):
     return upload(torch.from_numpy(_w_matrix_digits(field_name, k, inverse)), device)
 
 
+@trace.table
+def _twiddle_parts_on(field_name: str, k: int, k1: int, inverse: bool, device: str):
+    """`_twiddle_parts` with A and B on `device`, uploaded once."""
+    s, A, B = _twiddle_parts(field_name, k, k1, inverse)
+    return s, ftorch.to_tensor(A, device), ftorch.to_tensor(B, device)
+
+
 def _mm_stage(ctx: FieldCtx, k: int, inverse: bool, aT):
     """Direct DFT matmul along the last axis: aT (nl, m, r) -> (nl, r, m),
     through K-mm-norm."""
@@ -440,11 +448,9 @@ def _ntt_last(ctx: FieldCtx, aT, inverse: bool):
         nl, n1 * bt, n2), inverse)
     y = y.reshape(nl, n2, n1, bt)
     # twiddle w^(j1*k2), built on device from two factored ladders
-    s, A, B = _twiddle_parts(ctx.fp.name, k, k1, inverse)
-    dev = aT.device
-    tw = ftorch.mont_mul(
-        ctx, ftorch.to_tensor(A, dev).reshape(nl, 1, s, n1),
-        ftorch.to_tensor(B, dev).reshape(nl, n2 // s, 1, n1)).reshape(nl, n2, n1)
+    s, A, B = _twiddle_parts_on(ctx.fp.name, k, k1, inverse, str(aT.device))
+    tw = ftorch.mont_mul(ctx, A.reshape(nl, 1, s, n1),
+                         B.reshape(nl, n2 // s, 1, n1)).reshape(nl, n2, n1)
     y = ftorch.mont_mul(ctx, y, tw[:, :, :, None])
     # stage B: NTT over j1 for each (k2, bt): y already has j1 innermost
     z = _ntt_last(ctx, y.permute(0, 1, 3, 2).reshape(nl, n2 * bt, n1), inverse)

@@ -5,7 +5,10 @@ Prover pipeline, on the card by default:
 
   1. buildABC: gather the witness per coefficient, Montgomery-multiply
      (K-field), sum per constraint with an exact int64 `index_add_` over
-     limbs, one wide reduction back to [0, p).
+     limbs, one wide reduction back to [0, p).  The key's coefficients are
+     converted once per key and device into page-locked host memory
+     (`_staged_coefs`), copied to the card asynchronously with each proof
+     and freed there before the MSMs.
   2. QAP: intt -> coset shift -> ntt for each of A, B, C (K-mm at 2^12 and
      up, K-field below); P_odd = A_odd*B_odd - C_odd in plain form.
   3. Five MSMs (A, B1, B2, C, H) on the suffix-scan engine (K-scan + K-field).
@@ -91,6 +94,27 @@ def qap(ctx, domain_size, coef_val, coef_m, coef_c, coef_s, witness, mesh=None):
         return ftorch.from_mont(ctx, P)
 
 
+def _staged_coefs(zkey, dev):
+    """The key's coefficients as the QAP takes them (`val` as int32 limbs,
+    `m`, `c`, `s` as int64), converted once per key and device: in
+    page-locked memory for a CUDA device, so each proof's copies to the card
+    are asynchronous; as they are for a CPU device.  Read-only once built."""
+    cache = zkey.__dict__.setdefault("_staged_coefs", {})
+    key = str(dev)
+    if key not in cache:
+        co = zkey.coeffs
+
+        def stage(a, dtype):
+            t = torch.empty(a.shape, dtype=dtype, pin_memory=dev.type == "cuda")
+            np.copyto(t.numpy(), a, casting="unsafe")
+            return t
+
+        cache[key] = (stage(co["val"], torch.int32),) + tuple(
+            stage(co[n], torch.int64) for n in ("m", "c", "s"))
+        trace.add("coef_stagings")
+    return cache[key]
+
+
 def _dev_points(zkey, dev, mesh=None):
     """The zkey's MSM bases as device tensors, uploaded once per device;
     with `mesh` only this rank's block of each point set
@@ -137,15 +161,12 @@ def prove(zkey: zkey_fmt.Groth16Zkey, witness: wtns_fmt.Witness,
     with trace.root("groth16.prove", curve=cv.name, domain=zkey.domain_size,
                     n_vars=zkey.n_vars):
         ctx = ftorch.get_ctx(fr.name)
-        co = zkey.coeffs
-        idx = lambda a: devmod.upload(torch.from_numpy(a.astype("int64")), dev)
         with trace.span("prove.witness_upload"):
             wit = ftorch.to_tensor(witness.values, dev)
         log("QAP: buildABC + 6 NTTs")
         with trace.span("qap"):
             with trace.span("qap.coef_upload"):
-                coefs = (ftorch.to_tensor(co["val"], dev), idx(co["m"]), idx(co["c"]),
-                         idx(co["s"]))
+                coefs = tuple(devmod.upload(t, dev) for t in _staged_coefs(zkey, dev))
             p_odd = qap(ctx, zkey.domain_size, *coefs, wit, mesh)
             del coefs       # the device coefficients go before the MSMs
 

@@ -35,7 +35,8 @@ import torch
 
 KEEP = 8
 COUNTERS = ("k_scan", "k_reduce", "k_mm", "k_mm_norm", "h2d_bytes", "h2d_copies",
-            "d2h_bytes", "d2h_copies", "table_builds", "table_build_ns")
+            "h2d_async_copies", "d2h_bytes", "d2h_copies", "table_builds",
+            "table_build_ns", "coef_stagings")
 
 _COUNTS = dict.fromkeys(COUNTERS, 0)
 _RECENT = collections.deque(maxlen=KEEP)

@@ -162,6 +162,54 @@ def test_prove_files_on_fixture():
     assert json.dumps(proof) == json.dumps((want["proof"], want["publicSignals"]))
 
 
+def _chain_witness(cv, nc, x):
+    """The squaring chain's witness (`_tiny_circuit`) from the public input x."""
+    from snarkjs_tpu_torch.curves import host_curve
+    from snarkjs_tpu_torch.fields import ftorch
+    from snarkjs_tpu_torch.formats import wtns as twtns
+
+    fr = host_curve.get_curve(cv.name).fr
+    w = [1, x]
+    for _ in range(nc):
+        w.append(w[-1] * w[-1] % fr.p)
+    return twtns.Witness(n8=fr.n8, q=fr.p, n=nc + 2, values=ftorch.np_from_ints(fr, w))
+
+
+def test_proves_on_one_key_stage_its_coefficients_once_and_equal_fresh_keys():
+    """Three proves on one key object (witnesses w1, w2, w1) convert the key's
+    coefficients once; each proof equals the one a fresh key object gives
+    for its witness, and a second key object stages its own."""
+    from snarkjs_tpu_torch import trace
+
+    _, cv, zk, wit = _tiny("bn128", 40)
+    w1, w2 = convert.witness_from_numpy(wit), _chain_witness(cv, 40, 0xC0FFEE)
+    key = convert.zkey_from_numpy(zk)
+    staged = lambda: trace.counters()["coef_stagings"]
+    before = staged()
+    got = [tg.prove(key, w, r=R, s=S, device="cpu") for w in (w1, w2, w1)]
+    assert staged() - before == 1
+    fresh = [tg.prove(convert.zkey_from_numpy(zk), w, r=R, s=S, device="cpu")
+             for w in (w1, w2)]
+    assert staged() - before == 3
+    assert [json.dumps(p) for p in got] == [json.dumps(fresh[i]) for i in (0, 1, 0)]
+    assert json.dumps(got[0]) == json.dumps(_jax_proof("bn128", 40))
+    assert json.dumps(got[1]) != json.dumps(got[0])
+    proof, publics = got[1]
+    assert publics == [str(0xC0FFEE)]
+    assert tg.verify(tg.export_verification_key(key), publics, proof)
+
+
+def test_prove_leaves_the_key_coefficients_unchanged():
+    _, _, zk, wit = _tiny("bn128", 40)
+    key = convert.zkey_from_numpy(zk)
+    want = {k: (v.dtype, v.copy()) for k, v in key.coeffs.items()}
+    tg.prove(key, convert.witness_from_numpy(wit), r=R, s=S, device="cpu")
+    assert key.coeffs.keys() == want.keys()
+    for k, (dtype, v) in want.items():
+        assert key.coeffs[k].dtype == dtype, k
+        np.testing.assert_array_equal(key.coeffs[k], v)
+
+
 if __name__ == "__main__":
     from tests.test_torch_groth16_setup import equal_power_fixture_files, setup_fixture_files
 

@@ -17,6 +17,7 @@ import torch
 from snarkjs_tpu.fields import fjnp
 from snarkjs_tpu.ntt import ntt as jntt
 from snarkjs_tpu.ntt import ntt_mxu
+from snarkjs_tpu_torch import trace
 from snarkjs_tpu_torch.fields import ftorch
 from snarkjs_tpu_torch.ntt import ntt as tntt
 from snarkjs_tpu_torch.ntt import ntt_mm
@@ -119,6 +120,34 @@ def test_balanced_stages_match_butterflies(fn, k, monkeypatch):
     got = getattr(ntt_mm, fn)(ftorch.get_ctx(FR), ftorch.to_tensor(A, "cpu"))
     np.testing.assert_array_equal(ftorch.to_numpy(got), want)
     assert radices == _stages(k) and len(radices) == 3
+
+
+def test_device_twiddle_table_is_built_once():
+    """`_twiddle_parts_on` gives the same tensors on a second call, equal to
+    the host parts; another device string is another entry."""
+    args = (FR, 13, 7, False)
+    builds = lambda: trace.counters()["table_builds"]
+    first = ntt_mm._twiddle_parts_on(*args, "cpu")
+    n = builds()
+    again = ntt_mm._twiddle_parts_on(*args, "cpu")
+    assert builds() == n
+    assert again[0] == first[0] and again[1] is first[1] and again[2] is first[2]
+    s, A, B = ntt_mm._twiddle_parts(*args)
+    assert first[0] == s
+    np.testing.assert_array_equal(ftorch.to_numpy(first[1]), A)
+    np.testing.assert_array_equal(ftorch.to_numpy(first[2]), B)
+    assert ntt_mm._twiddle_parts_on(FR, 13, 7, True, "cpu")[1] is not first[1]
+
+
+@pytest.mark.parametrize("k", [12, 13])
+def test_k_mm_round_trip_gives_the_input(k):
+    """intt(ntt(a)) == a on the matmul route at 2^12 (6 + 6) and 2^13 (6 + 7),
+    twice, so the second pass reads the twiddle tables the first built."""
+    ctx = ftorch.get_ctx(FR)
+    a = ftorch.to_tensor(_data(k, 5), "cpu")
+    for _ in range(2):
+        back = ntt_mm.intt(ctx, ntt_mm.ntt(ctx, a))
+        assert torch.equal(back, a)
 
 
 def _digit_inputs(r, q, m, seed=3):

@@ -175,6 +175,7 @@ def test_one_registry_holds_every_counter():
 
     c = trace.counters()
     assert set(trace.COUNTERS) <= set(c)
+    assert {"h2d_async_copies", "coef_stagings"} <= set(trace.COUNTERS)
     assert {"k_field." + op for op in fcuda.OPS} | {"k_field"} <= set(c)
     fcuda.LAUNCHES["add"] += 3
     assert trace.counters()["k_field"] == trace.counters()["k_field.add"] + sum(
@@ -208,6 +209,25 @@ def test_an_upload_counts_only_copies_to_a_card():
     t = devmod.upload(torch.zeros(10, dtype=torch.int32), "cpu")
     assert t.device.type == "cpu"
     assert trace.counters() == before
+
+
+@pytest.mark.cuda
+def test_an_upload_from_pinned_memory_is_counted_as_asynchronous():
+    """A pinned source goes with `non_blocking` and counts `h2d_async_copies`
+    and its bytes; a pageable one counts `h2d_copies`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; page-locked memory needs CUDA")
+    src = torch.arange(1 << 20, dtype=torch.int64)
+    keys = ("h2d_bytes", "h2d_copies", "h2d_async_copies")
+    delta = lambda before: {k: trace.counters()[k] - before[k] for k in keys}
+    before = trace.counters()
+    out = devmod.upload(src.pin_memory(), "cuda")
+    torch.cuda.synchronize()
+    assert delta(before) == {"h2d_bytes": src.nbytes, "h2d_copies": 0, "h2d_async_copies": 1}
+    assert out.device.type == "cuda" and torch.equal(out.cpu(), src)
+    before = trace.counters()
+    devmod.upload(src, "cuda")
+    assert delta(before) == {"h2d_bytes": src.nbytes, "h2d_copies": 1, "h2d_async_copies": 0}
 
 
 # ------------------------------------------------------------------ PLONK
